@@ -1,0 +1,565 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
+
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4] [--profile]
+
+Phases, each printing its elapsed seconds as it goes:
+  0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
+  1  build: one nvcc per kernel source, all started together; build seconds
+     and the -Xptxas -v report (registers, shared memory, spills)
+  2  kernels against their plain PyTorch versions in bf16, at every call
+     signature the flagship forward path gives them (batch 2) plus a ragged
+     case each; time of kernel, plain version and one PyTorch library call
+     (F.group_norm + F.silu, F.scaled_dot_product_attention: timed here as
+     yardsticks, never called by the port), and each case's bound
+  3  the main path at flagship width: random bf16 weights made on the card
+     from a seed, 2 requests (one batch of 2) through
+     `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
+     shape, finiteness, that both kernels ran and that every call they got
+     was checked in phase 2
+  4  the repo's trained small() weights through the flax converter onto the
+     card: one model evaluation against the same weights in f32 on the CPU
+     (plain versions); one forward render at batch 2 through the public
+     entry point; one on card and CPU from the same noise, compared
+
+Any failure exits non-zero.  The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
+a line {"kernels": [...]}.  --out DIR also writes every measured case to
+DIR/chip_smoke.json; --profile adds a torch.profiler breakdown of one
+flagship request by kernel class.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+SEED = 1234
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+CARD_REL = 2.0 ** -7             # bf16 output rounding, relative to max|ref|
+SMALL_MODEL_REL = 0.05           # bf16 small() model vs f32, rel. to max|ref|
+SMALL_RENDER_MEAN_ABS = 0.1      # bf16 vs f32 forward render, mean |diff|
+DUAL_NPZ = "artifacts/r05/dual_small.npz"
+VAE_NPZ = "artifacts/r04/vae_small.npz"
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+class Timer:
+    """Mean device time of fn() over reps, each launch after an L2 flush
+    (the main path finds its inputs cold), from CUDA events."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        fn()                                  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        est_ms = (time.perf_counter() - t) * 1e3
+        reps = int(min(20, max(3, 40 / max(est_ms, 1e-3))))
+        total = 0.0
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def gn_case(torch, F, timer, gen, case):
+    from unirenderer_tpu_torch.ops.groupnorm import (
+        fused_groupnorm_silu, groupnorm_silu_reference,
+    )
+    shape, groups, eps, silu = case
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+         ).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    y = fused_groupnorm_silu(x, scale, bias, groups, eps, silu)
+    ref = groupnorm_silu_reference(x.float(), scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()
+    err = (y.float() - ref).abs().max().item()
+    tol = CARD_REL * ref.abs().max().item()
+    del ref, y
+    xc = x.permute(0, 3, 1, 2)
+    w16, b16 = scale.bfloat16(), bias.bfloat16()
+
+    def library():
+        out = F.group_norm(xc, groups, w16, b16, eps)
+        return F.silu(out) if silu else out
+
+    ms = timer(lambda: fused_groupnorm_silu(x, scale, bias, groups, eps, silu))
+    plain_ms = timer(lambda: groupnorm_silu_reference(x, scale, bias, groups,
+                                                      eps, silu))
+    library_ms = timer(library)
+    nbytes = x.numel() * 2
+    bound_ms = (2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+    return dict(kernel="groupnorm_silu", shape=list(shape), groups=groups,
+                eps=eps, silu=silu, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="bytes",
+                three_pass_floor_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def attn_case(torch, F, timer, gen, case):
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    qs, ks = case
+    q = torch.randn(qs, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(ks, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(ks, generator=gen, device="cuda").bfloat16()
+    o = flash_attention(q, k, v)
+    ref = attention_reference(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = (o.float() - ref).abs().max().item()
+    tol = CARD_REL * ref.abs().max().item()
+    del ref, o
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain_ms = timer(lambda: attention_reference(q, k, v))
+    library_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    b, sq, h, d = qs
+    sk = ks[1]
+    flop_ms = 4.0 * b * h * sq * sk * d / BF16_FLOPS * 1e3
+    byte_ms = 2.0 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S * 1e3
+    return dict(kernel="flash_attention", shape=[list(qs), list(ks)],
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes")
+
+
+def phase_kernels(torch, F, timer, gn_cases, attn_cases):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = []
+    for fn, cases in ((gn_case, gn_cases), (attn_case, attn_cases)):
+        for case in cases:
+            r = fn(torch, F, timer, gen, case)
+            results.append(r)
+            ok = r["max_abs_err"] <= r["tol"]
+            log(f"  {r['kernel']:15s} {json.dumps(r['shape'])} "
+                + (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])} "
+                   if "groups" in r else "")
+                + f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
+                f"{'ok' if ok else 'FAIL'}  kernel {r['ms']:.4f} ms  "
+                f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
+                f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            torch.cuda.empty_cache()
+    bad = [r for r in results if not r["max_abs_err"] <= r["tol"]]
+    check(not bad, f"{len(bad)} kernel case(s) out of tolerance")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path at flagship width
+# ---------------------------------------------------------------------------
+
+
+def synthetic_request(torch, F, gen, batch, res):
+    """Seeded intrinsic maps on the card: smooth fields in [-1, 1] and a
+    disc mask, plus metallic/roughness per request."""
+    def smooth(ch):
+        z = torch.randn((batch, ch, 16, 16), generator=gen, device="cuda")
+        z = F.interpolate(z, size=(res, res), mode="bilinear",
+                          align_corners=False)
+        return torch.tanh(z).permute(0, 2, 3, 1).contiguous()
+
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, res, device="cuda"),
+                            torch.linspace(-1, 1, res, device="cuda"),
+                            indexing="ij")
+    disc = ((xx ** 2 + yy ** 2) < 0.6).float() * 2.0 - 1.0
+    req = {k: smooth(3) for k in ("normal", "albedo", "spec_light",
+                                  "diff_light", "env")}
+    req["mask"] = disc[None, :, :, None].expand(batch, res, res, 3)
+    req["metallic"] = torch.rand(batch, generator=gen, device="cuda")
+    req["roughness"] = torch.rand(batch, generator=gen, device="cuda")
+    return req
+
+
+def reset_counters():
+    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
+    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    for w in (fused_groupnorm_silu, flash_attention):
+        w.launches = 0
+        w.seen.clear()
+
+
+def read_counters():
+    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
+    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    return ({"groupnorm_silu": fused_groupnorm_silu.launches,
+             "flash_attention": flash_attention.launches},
+            {"groupnorm_silu": set(fused_groupnorm_silu.seen),
+             "flash_attention": set(flash_attention.seen)})
+
+
+def phase_main_path(torch, F, cfg, checked, profile):
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    batch, res = 2, cfg.vae.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t = time.perf_counter()
+    pipe = UniRendererPipeline.create(cfg, gen, device="cuda",
+                                      dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.dual, pipe.vae, pipe.text)
+                   for p in m.parameters())
+    log(f"  flagship weights on the card: {n_params / 1e9:.3f} B params "
+        f"bf16 in {time.perf_counter() - t:.1f} s")
+    req = synthetic_request(torch, F, gen, batch, res)
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = pipe.mask2image_3mod_albedo(**req, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, seen = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+
+    check(tuple(out.shape) == (batch, res, res, 3),
+          f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched on the main path")
+        missed = seen[name] - checked[name]
+        check(not missed, f"{name} got calls phase 2 did not check: "
+              f"{sorted(missed)[:3]}")
+    log(f"  2 requests x {cfg.sampler.num_steps} steps at {res}^2: wall "
+        f"{wall:.3f} s, {wall / batch:.3f} s/request (first call, cold), "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}, "
+        f"output range [{out.min().item():.3f}, {out.max().item():.3f}]")
+
+    t = time.perf_counter()
+    out2 = pipe.mask2image_3mod_albedo(**req, generator=gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    check(bool(torch.isfinite(out2).all()), "non-finite output (2nd call)")
+    log(f"  second call (warm): wall {warm:.3f} s, "
+        f"{warm / batch:.3f} s/request")
+    result = dict(batch=batch, steps=cfg.sampler.num_steps, wall_s=wall,
+                  warm_wall_s=warm, peak_bytes=peak, launches=launches,
+                  params=n_params)
+    if profile:
+        result["profile"] = profile_request(torch, pipe, req, gen)
+    del pipe
+    torch.cuda.empty_cache()
+    return result
+
+
+KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
+    ("K1 groupnorm_silu", ("gn_stats_kernel", "gn_finalize_kernel",
+                           "gn_apply_kernel")),
+    ("K2 flash_attention", ("flash_fwd_kernel",)),
+    ("convolution", ("fprop", "convolve", "implicit_gemm", "winograd")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("normalisation (LayerNorm)", ("layer_norm",)),
+    ("softmax", ("softmax",)),
+)
+
+
+def profile_request(torch, pipe, req, gen):
+    """Device time by kernel class over one full request (torch.profiler,
+    device kernels only), against the wall of the profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.mask2image_3mod_albedo(**req, generator=gen)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    by_class = {}
+    for ms, n, key in kernels:
+        cls = next((c for c, subs in KERNEL_CLASSES
+                    if any(x in key for x in subs)), "elementwise / copy")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    syncs = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+    log(f"  profile of one request batch: wall {wall_ms:.1f} ms (profiler "
+        f"on), device busy {busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}%"
+        f", device-to-host copies {syncs}")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  {cls}")
+    for ms, n, key in kernels[:15]:
+        log(f"    {ms:9.3f} ms {n:6d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, by_class=by_class,
+                device_to_host_copies=syncs,
+                top=[dict(ms=ms, count=n, name=key)
+                     for ms, n, key in kernels[:60]])
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the trained small() weights through the converter
+# ---------------------------------------------------------------------------
+
+
+def phase_small_weights(torch, F):
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.core.checkpoint import load_params_npz
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    cfg = config.small()
+    dual_flat, step = load_params_npz(DUAL_NPZ)
+    vae_flat, _ = load_params_npz(VAE_NPZ)
+    card = UniRendererPipeline.create(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+        dtype=torch.bfloat16)
+    skipped = card.load_flax(dual=dual_flat, vae=vae_flat)
+    host = UniRendererPipeline.create(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu",
+        dtype=torch.float32)
+    host.load_flax(dual=dual_flat, vae=vae_flat)
+    host.text.load_state_dict(card.text.state_dict())   # same random CLIP
+    log(f"  loaded {DUAL_NPZ} (step {step}; {skipped} attribute-decoder keys "
+        f"skipped) and {VAE_NPZ}")
+
+    # one model evaluation, card bf16 against host f32 plain versions
+    g = torch.Generator().manual_seed(SEED)
+    u, s, b = cfg.unet, cfg.unet.sample_size, 2
+    img = torch.randn((b, s, s, u.in_channels), generator=g)
+    attr = torch.randn((b, s, s, u.attr_channels), generator=g)
+    ctx = torch.randn((b, cfg.text.max_length, u.cross_attention_dim),
+                      generator=g)
+    t_img = torch.tensor([999, 400])
+    preds = []
+    for pipe in (card, host):
+        dev = pipe.device
+        with torch.no_grad():
+            down, mid = pipe.dual.encode_attr(
+                attr.to(dev), torch.zeros(b, dtype=torch.long, device=dev),
+                ctx.to(dev))
+            preds.append(pipe.dual.image_stream_with_residuals(
+                img.to(dev), t_img.to(dev), ctx.to(dev), down, mid).cpu())
+    err = (preds[0] - preds[1]).abs().max().item()
+    tol = SMALL_MODEL_REL * preds[1].abs().max().item()
+    log(f"  small() model eval, card bf16 vs CPU f32: max|diff| {err:.4g} "
+        f"tol {tol:.4g}")
+    check(err <= tol, "small() model on the card disagrees with the CPU")
+
+    # forward renders at batch 2: one through the public entry point (noise
+    # from a generator on the card), then card and CPU on the same noise
+    res = cfg.vae.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    req = synthetic_request(torch, F, gen, b, res)
+    out = card.mask2image_3mod_albedo(**req, generator=gen)
+    check(tuple(out.shape) == (b, res, res, 3), "small render shape")
+    check(bool(torch.isfinite(out).all()), "small render not finite")
+    req = {k: v.cpu() for k, v in req.items()}
+    lat = res // cfg.vae.downscale
+    enc_noise = torch.randn((6 * b, lat, lat, 4), generator=g)
+    img_noise = torch.randn((b, lat, lat, 4), generator=g)
+    outs = [pipe.mask2image_3mod_albedo_with_noise(
+        **req, enc_noise=enc_noise, img_noise=img_noise).cpu()
+        for pipe in (card, host)]
+    check(bool(torch.isfinite(outs[0]).all()), "small render not finite")
+    diff = (outs[0].clamp(-1, 1) - outs[1].clamp(-1, 1))
+    mse = (diff / 2).pow(2).mean().item()
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+    mean_abs = diff.abs().mean().item()
+    log(f"  small() forward render (20 steps), card bf16 vs CPU f32: mean "
+        f"|diff| {mean_abs:.4g} (limit {SMALL_RENDER_MEAN_ABS}), PSNR "
+        f"{psnr:.2f} dB")
+    check(mean_abs <= SMALL_RENDER_MEAN_ABS,
+          "small() render on the card disagrees with the CPU")
+    return dict(model_max_abs_err=err, model_tol=tol,
+                render_mean_abs_diff=mean_abs, render_psnr_db=psnr,
+                skipped_decoder_keys=skipped)
+
+
+# ---------------------------------------------------------------------------
+
+
+KERNELS = {
+    "groupnorm_silu": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/groupnorm.cu",
+        replaces="unirenderer_tpu/ops/groupnorm.py:42",
+        # the UNet's 64^2 ResnetBlock norm: the most frequent large call
+        headline=lambda r: (r["shape"] == [2, 64, 64, 320]
+                            and r["eps"] == 1e-5 and r["silu"])),
+    "flash_attention": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/flash_attention.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:68",
+        # the 64^2 self-attention: most of the path's attention work
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+}
+
+
+def kernels_line(results, launches):
+    """The result line: per kernel its main-path launches, its worst error
+    over all checked cases, and the times and bound of its headline case."""
+    out = []
+    for name, meta in KERNELS.items():
+        mine = [r for r in results if r["kernel"] == name]
+        head = next(r for r in mine if meta["headline"](r))
+        out.append(dict(
+            name=name, route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"], launches=launches.get(name, 0),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape=head["shape"],
+            cases=len(mine)))
+    return {"kernels": out}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="directory for chip_smoke.json (every case)")
+    ap.add_argument("--phases", default="0,1,2,3,4")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 2
+    try:
+        from unirenderer_tpu_torch.core import config
+        from unirenderer_tpu_torch.ops import _build
+        from unirenderer_tpu_torch.pipelines import kernel_cases
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr, flush=True)
+        return 3
+
+    record = {}
+    try:
+        # ---- 0: device
+        name = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        smi = nvidia_smi()
+        log(f"phase 0 device: {name} x{count}, torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+        print(f"nvidia-smi: {smi}", flush=True)
+        record["device"] = dict(name=name, count=count, nvidia_smi=smi,
+                                torch=torch.__version__,
+                                cuda=torch.version.cuda)
+        # ---- 1: build
+        if phases - {0}:
+            t = time.perf_counter()
+            built = _build.build()
+            log(f"phase 1 build: {time.perf_counter() - t:.1f} s wall "
+                f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+            for b in built.values():
+                log(f"  {b.name}: {b.seconds:.1f} s -> {b.path.name}")
+                for line in b.log.splitlines():
+                    if ("entry function" in line or "registers" in line
+                            or "spill" in line):
+                        print(f"    {line.strip()}", flush=True)
+            record["build"] = {b.name: b.seconds for b in built.values()}
+
+        cfg = config.flagship()
+        gn_cases, attn_cases = kernel_cases(cfg, 2, cfg.vae.sample_size)
+        checked = {"groupnorm_silu": set(gn_cases),
+                   "flash_attention": set(attn_cases)}
+        # ---- 2: kernels against their plain versions
+        results = []
+        if 2 in phases:
+            tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            log(f"phase 2 kernels vs plain versions, bf16, tolerance "
+                f"2^-7 * max|ref| (TF32 off for the plain versions): "
+                f"{len(gn_cases)} GroupNorm + {len(attn_cases)} attention "
+                f"main-path cases + ragged")
+            ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
+                         ((1, 33, 31, 1920), 32, 1e-6, False)]
+            ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
+                           ((1, 77, 3, 24), (1, 200, 3, 24))]
+            timer = Timer(torch)
+            results = phase_kernels(
+                torch, F, timer, sorted(gn_cases) + ragged_gn,
+                sorted(attn_cases) + ragged_attn)
+            del timer
+            torch.cuda.empty_cache()
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32     # PyTorch defaults
+            record["kernel_cases"] = results
+            log("phase 2 done")
+        launches = {}
+        # ---- 3: main path
+        if 3 in phases:
+            log("phase 3 main path: flagship, 2 requests, "
+                f"{cfg.sampler.num_steps} steps")
+            main_path = phase_main_path(torch, F, cfg, checked, args.profile)
+            launches = main_path["launches"]
+            record["main_path"] = main_path
+            log("phase 3 done")
+        # ---- 4: trained small() weights
+        if 4 in phases:
+            log("phase 4 converter on the card: small() trained weights")
+            record["small_weights"] = phase_small_weights(torch, F)
+            log("phase 4 done")
+    except SmokeFailure as e:
+        log(f"FAILED: {e}")
+        return 1
+    finally:
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+                json.dump(record, f, indent=1, default=str)
+
+    if phases != {0, 1, 2, 3, 4}:
+        log(f"phases {sorted(phases)} passed (partial run: no result line)")
+        return 0
+    log("all phases passed")
+    print(f"nvidia-smi: {nvidia_smi()}", flush=True)
+    print(json.dumps(kernels_line(results, launches)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

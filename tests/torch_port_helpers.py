@@ -1,0 +1,70 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package: seeded numpy parameters for a flax module (from `jax.eval_shape`
+of its init, so no flax init runs), flattening to `/`-joined paths, and
+the relative-error check every parity test states."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import jax
+import numpy as np
+import torch
+
+
+def flax_shapes(module, *args, **kwargs):
+    """The module's variables as ShapeDtypeStructs (no init compute)."""
+    return jax.eval_shape(lambda k: module.init(k, *args, **kwargs),
+                          jax.random.key(0))
+
+
+def random_params(shapes, seed: int):
+    """Fill a flax shape tree with seeded values: kernels N(0, 1/fan_in),
+    scales 1 + N(0, 0.1^2), biases N(0, 0.1^2), embeddings N(0, 1).
+    Zero-convs get random values too, so every path shapes the output."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        if name == "kernel":
+            z /= np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "scale":
+            z = 1.0 + 0.1 * z
+        elif name in ("bias", "position_embedding"):
+            z *= 0.1
+        return z
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def flatten(tree, prefix=()) -> Dict[str, np.ndarray]:
+    """Nested params dict -> {'a/b/leaf': array} (save_params_npz keys)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (str(k),)))
+        else:
+            out["/".join(prefix + (str(k),))] = np.asarray(v)
+    return out
+
+
+def to_jax(*arrays):
+    return tuple(jax.numpy.asarray(a) for a in arrays)
+
+
+def to_torch(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def assert_rel_close(got, want, rel: float, what: str = "") -> float:
+    """max|got - want| <= rel * max|want|; returns the relative error."""
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got,
+                     dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all(), what
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got - want).max() / scale
+    assert err <= rel, f"{what}: max rel err {err:.3e} > {rel:.1e}"
+    return err

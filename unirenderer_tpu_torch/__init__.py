@@ -1,0 +1,19 @@
+"""unirenderer_tpu_torch: the PyTorch/CUDA port of `unirenderer_tpu`.
+
+The JAX package stays the reference; this package re-implements its
+forward-rendering path (`UniRendererPipeline.mask2image_3mod_albedo`) in
+PyTorch for an NVIDIA H100, with the two TPU kernels on that path written
+by hand in CUDA (`csrc/`).  Module names mirror the JAX package:
+
+    core/       configs (own copy), npz reader, flax -> torch weight converter
+    diffusion/  DDPM x0 schedule and the UniPC sampler step
+    ops/        kernel wrappers (GroupNorm+SiLU, flash attention) and the
+                nvcc build of `csrc/*.cu`
+    models/     nn.Modules: layers, UNet blocks, CLIP text, VAE, dual stream
+    pipelines   UniRendererPipeline (forward rendering)
+
+Public functions keep the JAX package's NHWC / (B, S, H, D) layouts.
+Entry points run on the card (`device="cuda"`) unless the caller passes
+`device="cpu"`; on the CPU every kernel wrapper runs its plain PyTorch
+version.  Nothing here imports JAX.
+"""

@@ -1,0 +1,150 @@
+"""Typed configuration: the port's own copy of `unirenderer_tpu.core.config`.
+
+Only the parts the forward-rendering path reads are carried over: the
+model geometries (UNet, VAE, CLIP text), the diffusion schedule and the
+sampler recipe, with the same defaults and the same `flagship()`,
+`small()` and `tiny()` presets.  Renderer, data and training settings
+come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+LATENT_CHANNELS = 4
+# the attribute stream: seven 4-channel latent groups, concatenated in the
+# order mask | material | normal | albedo | spec_light | diff_light | env
+ATTR_CHANNELS = 7 * LATENT_CHANNELS
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Dual-stream denoiser trunk (SD-v1.4 UNet geometry by default)."""
+    in_channels: int = LATENT_CHANNELS
+    out_channels: int = LATENT_CHANNELS
+    attr_channels: int = ATTR_CHANNELS
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    # True -> the level has spatial transformers (SD1.x: first 3 down)
+    down_block_attn: Tuple[bool, ...] = (True, True, True, False)
+    num_heads: int = 8
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    transformer_layers: int = 1
+    sample_size: int = 64                           # latent H=W
+
+    @property
+    def up_block_attn(self) -> Tuple[bool, ...]:
+        return tuple(reversed(self.down_block_attn))
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """SD AutoencoderKL geometry."""
+    in_channels: int = 3
+    latent_channels: int = LATENT_CHANNELS
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    sample_size: int = 512
+
+    @property
+    def downscale(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    """CLIP ViT-L/14 text model geometry."""
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    intermediate_size: int = 3072
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """x0-prediction DDPM schedule with scaled-linear SD betas."""
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Inference recipe: UniPC (order 2, bh2), no guidance."""
+    num_steps: int = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    text: TextEncoderConfig = dataclasses.field(default_factory=TextEncoderConfig)
+    diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
+    sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
+
+
+def flagship() -> SystemConfig:
+    """SD-v1.4 geometry: 512^2 images, 64^2 latents."""
+    return SystemConfig()
+
+
+def small() -> SystemConfig:
+    """64^2 images, 16^2 latents: the config of the in-repo trained weights
+    (artifacts/r05/dual_small.npz, artifacts/r04/vae_small.npz)."""
+    return SystemConfig(
+        unet=UNetConfig(
+            block_out_channels=(128, 256, 512),
+            layers_per_block=1,
+            down_block_attn=(True, True, False),
+            num_heads=4,
+            cross_attention_dim=256,
+            norm_num_groups=16,
+            sample_size=16,
+        ),
+        vae=VAEConfig(
+            block_out_channels=(32, 64, 128),
+            layers_per_block=1,
+            norm_num_groups=8,
+            sample_size=64,
+        ),
+        text=TextEncoderConfig(
+            vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+            max_length=16, intermediate_size=512,
+        ),
+    )
+
+
+def tiny(latent_size: int = 8) -> SystemConfig:
+    """A minute system for tests: same topology, toy widths."""
+    return SystemConfig(
+        unet=UNetConfig(
+            block_out_channels=(32, 64),
+            layers_per_block=1,
+            down_block_attn=(True, False),
+            num_heads=2,
+            cross_attention_dim=32,
+            norm_num_groups=8,
+            sample_size=latent_size,
+        ),
+        vae=VAEConfig(
+            block_out_channels=(16, 32),
+            layers_per_block=1,
+            norm_num_groups=8,
+            sample_size=latent_size * 2,
+        ),
+        text=TextEncoderConfig(
+            vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
+            max_length=16, intermediate_size=64,
+        ),
+        sampler=SamplerConfig(num_steps=3),
+    )

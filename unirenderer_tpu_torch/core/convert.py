@@ -1,0 +1,79 @@
+"""Flax parameters -> the port's state dicts.
+
+The port's modules carry the flax module names, so a flax path maps to a
+state-dict key by joining with `.` and renaming the leaf:
+
+    conv kernel  (kh, kw, I, O) -> weight (O, I, kh, kw)
+    dense kernel (I, O)         -> weight (O, I)
+    GroupNorm / LayerNorm scale -> weight
+    Embed embedding             -> weight
+
+(the inverse of the layout rules in `unirenderer_tpu/models/surgery.py`).
+Loading is strict: every parameter of the module is filled and every key
+of the file is used, except the attribute decoder (`controldec/...`), which
+this slice does not port; those keys are skipped by name and counted.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+SKIPPED_PREFIXES = ("controldec/",)
+
+
+def _strip_collection(key: str) -> str:
+    return key[len("params/"):] if key.startswith("params/") else key
+
+
+def state_dict_from_flax(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """{flax path joined with '/': array} -> {state-dict key: tensor}.
+    A leading `params/` collection name is dropped; skipped prefixes are
+    left out (see `load_flax`)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in flat.items():
+        path = _strip_collection(key)
+        if path.startswith(SKIPPED_PREFIXES):
+            continue
+        *mods, leaf = path.split("/")
+        a = np.asarray(arr)
+        if leaf == "kernel":
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"{key}: kernel of rank {a.ndim}")
+            leaf = "weight"
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        out[".".join(mods + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(a))
+    return out
+
+
+def count_skipped(keys: Iterable[str]) -> int:
+    return sum(_strip_collection(k).startswith(SKIPPED_PREFIXES)
+               for k in keys)
+
+
+def load_flax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
+    """Fill `module` from flax params, strictly (shapes and key sets must
+    match).  Returns the number of skipped attribute-decoder keys."""
+    sd = state_dict_from_flax(flat)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unused = sorted(set(sd) - set(own))
+    if missing or unused:
+        raise KeyError(f"flax -> torch key mismatch: {len(missing)} missing "
+                       f"{missing[:5]}, {len(unused)} unused {unused[:5]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: flax shape {tuple(v.shape)} vs port "
+                             f"{tuple(own[k].shape)}")
+    module.load_state_dict(sd, strict=True)
+    return count_skipped(flat)

@@ -1,0 +1,166 @@
+"""The dual-stream denoiser: image UNet + attribute encoder.
+
+Counterpart of `unirenderer_tpu/models/dual_stream.py` for the forward-
+rendering path: `ImageUNet`, `AttrEncoder` and the two split entry points
+the sampler uses, `DualStreamModel.encode_attr` (run once per request: in
+forward rendering the attribute stream is clean at t_attr = 0, so the
+encoder's residuals do not change across denoise steps) and
+`image_stream_with_residuals` (one UNet pass per step).  The attribute
+decoder (flax name `controldec`) comes with the inverse-rendering slice.
+
+Submodule names are the flax names (`unet`, `controlnet`, `down_0`, ...).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from unirenderer_tpu_torch.core.config import UNetConfig
+from unirenderer_tpu_torch.models.blocks import DownBlock, MidBlock, UpBlock
+from unirenderer_tpu_torch.models.layers import (
+    Conv, FusedGroupNorm, TimestepEmbedMLP, ZeroConv, timestep_embedding,
+)
+
+Taps = Tuple[torch.Tensor, ...]
+
+
+def down_tap_channels(cfg: UNetConfig) -> List[int]:
+    """Widths of the encoder half's taps: conv_in, then one per resnet and
+    one per downsample (1 + 3 + 3 + 3 + 2 at SD1.x)."""
+    chs = [cfg.block_out_channels[0]]
+    for i, ch in enumerate(cfg.block_out_channels):
+        chs += [ch] * cfg.layers_per_block
+        if i != len(cfg.block_out_channels) - 1:
+            chs.append(ch)
+    return chs
+
+
+class _EncoderHalf(nn.Module):
+    """time embedding, conv_in and the down + mid blocks shared by the
+    UNet and the attribute encoder."""
+
+    def __init__(self, cfg: UNetConfig, in_channels: int):
+        super().__init__()
+        self.cfg = cfg
+        chs = cfg.block_out_channels
+        temb = cfg.time_embed_dim
+        self.time_embedding = TimestepEmbedMLP(chs[0], temb)
+        self.conv_in = Conv(in_channels, chs[0], 3, padding=1)
+        prev = chs[0]
+        for i, ch in enumerate(chs):
+            self.add_module(f"down_{i}", DownBlock(
+                prev, ch, cfg.layers_per_block, cfg.down_block_attn[i],
+                cfg.num_heads, cfg.cross_attention_dim,
+                cfg.transformer_layers, cfg.norm_num_groups,
+                add_downsample=i != len(chs) - 1, temb_dim=temb))
+            prev = ch
+        self.mid = MidBlock(chs[-1], cfg.num_heads, cfg.cross_attention_dim,
+                            cfg.transformer_layers, cfg.norm_num_groups, temb)
+
+    def time_embed(self, t: torch.Tensor) -> torch.Tensor:
+        return self.time_embedding(
+            timestep_embedding(t, self.cfg.block_out_channels[0]))
+
+    def encode(self, x: torch.Tensor, temb: torch.Tensor,
+               ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
+        x = self.conv_in(x.to(self.conv_in.weight.dtype))
+        taps = [x]
+        for i in range(len(self.cfg.block_out_channels)):
+            x, t = getattr(self, f"down_{i}")(x, temb, ctx)
+            taps.extend(t)
+        return tuple(taps), self.mid(x, temb, ctx)
+
+
+class ImageUNet(_EncoderHalf):
+    """SD-geometry UNet over the image latent; residuals from the attribute
+    encoder are added to its encoder half's taps and mid output.
+
+    forward -> img_pred (f32)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg, cfg.in_channels)
+        chs = cfg.block_out_channels
+        rev = tuple(reversed(chs))
+        n_skip = cfg.layers_per_block + 1
+        skips = down_tap_channels(cfg)
+        prev = chs[-1]
+        for i, ch in enumerate(rev):
+            blk = skips[-n_skip:]
+            del skips[-n_skip:]
+            self.add_module(f"up_{i}", UpBlock(
+                prev, ch, tuple(reversed(blk)), cfg.up_block_attn[i],
+                cfg.num_heads, cfg.cross_attention_dim,
+                cfg.transformer_layers, cfg.norm_num_groups,
+                add_upsample=i != len(rev) - 1,
+                temb_dim=cfg.time_embed_dim))
+            prev = ch
+        self.conv_norm_out = FusedGroupNorm(chs[0], cfg.norm_num_groups, 1e-5,
+                                            silu=True)
+        self.conv_out = Conv(chs[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, t_img: torch.Tensor,
+                ctx: torch.Tensor, down_residuals: Optional[Taps] = None,
+                mid_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        temb = self.time_embed(t_img)
+        down_taps, x = self.encode(sample, temb, ctx)
+        if down_residuals is not None:
+            down_taps = tuple(d + r.to(d.dtype)
+                              for d, r in zip(down_taps, down_residuals))
+        if mid_residual is not None:
+            x = x + mid_residual.to(x.dtype)
+
+        skips = list(down_taps)
+        n_skip = cfg.layers_per_block + 1
+        for i in range(len(cfg.block_out_channels)):
+            blk_skips = tuple(skips[-n_skip:])
+            del skips[-n_skip:]
+            x = getattr(self, f"up_{i}")(x, blk_skips, temb, ctx)
+        return self.conv_out(self.conv_norm_out(x)).float()
+
+
+class AttrEncoder(_EncoderHalf):
+    """ControlNet-style copy of the UNet encoder over the 28-channel
+    attribute latent; the image latent never enters it.
+
+    forward -> (ctrl_down, ctrl_mid): the zero-conv'd taps and mid output."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg, cfg.attr_channels)
+        for i, ch in enumerate(down_tap_channels(cfg)):
+            self.add_module(f"zero_down_{i}", ZeroConv(ch))
+        self.zero_mid = ZeroConv(cfg.block_out_channels[-1])
+
+    def forward(self, attr_latent: torch.Tensor, t_attr: torch.Tensor,
+                ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
+        temb = self.time_embed(t_attr)
+        down_taps, mid = self.encode(attr_latent, temb, ctx)
+        ctrl_down = tuple(getattr(self, f"zero_down_{i}")(t)
+                          for i, t in enumerate(down_taps))
+        return ctrl_down, self.zero_mid(mid)
+
+
+class DualStreamModel(nn.Module):
+    """The image UNet (`unet`) and the attribute encoder (`controlnet`)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.unet = ImageUNet(cfg)
+        self.controlnet = AttrEncoder(cfg)
+
+    def encode_attr(self, attr_latent: torch.Tensor, t_attr: torch.Tensor,
+                    ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
+        dtype = self.unet.conv_in.weight.dtype
+        return self.controlnet(attr_latent, t_attr, ctx.to(dtype))
+
+    def image_stream_with_residuals(self, img_latent: torch.Tensor,
+                                    t_img: torch.Tensor, ctx: torch.Tensor,
+                                    ctrl_down: Taps,
+                                    ctrl_mid: torch.Tensor) -> torch.Tensor:
+        dtype = self.unet.conv_in.weight.dtype
+        return self.unet(img_latent, t_img, ctx.to(dtype), ctrl_down,
+                         ctrl_mid)

@@ -1,0 +1,102 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` has a plain `extern "C"` interface and includes no
+PyTorch header, so one `nvcc` call builds it into a shared library in
+seconds.  The library goes to `_build/` beside this package (ignored by
+git) under a name that carries a hash of the source and the flags, so a
+second process on the same machine reuses it.  It is loaded with `ctypes`.
+
+A missing `nvcc` or a failed build raises: nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("groupnorm", "flash_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    name: str
+    path: Path
+    seconds: float          # 0.0 when an earlier build was reused
+    log: str                # nvcc's output, with the -Xptxas -v report
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildResult]:
+    """Build every named source not yet built, one nvcc per source, all
+    started together.  Returns each library's path, build time and log."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results: Dict[str, BuildResult] = {}
+    running = {}
+    for name in names:
+        out = library_path(name)
+        log_path = out.with_suffix(".log")
+        if out.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+            results[name] = BuildResult(name, out, 0.0, log)
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, log_path, time.perf_counter(), cmd)
+    failures = []
+    for name, (proc, tmp, out, log_path, t0, cmd) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{log}")
+            continue
+        log_path.write_text(log)
+        os.replace(tmp, out)
+        results[name] = BuildResult(name, out, seconds, log)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built at first use."""
+    lib: Optional[ctypes.CDLL] = _loaded.get(name)
+    if lib is None:
+        path = build([name])[name].path
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib
