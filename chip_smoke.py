@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4,5,6,7] [--profile]
 
 Phases, each printing its elapsed seconds as it goes:
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
@@ -21,6 +21,21 @@ Phases, each printing its elapsed seconds as it goes:
      card: one model evaluation against the same weights in f32 on the CPU
      (plain versions); one forward render at batch 2 through the public
      entry point; one on card and CPU from the same noise, compared
+  5  the rasterizer (K4) against its plain version on the card: the
+     flagship collate's shape (2 views at 1024^2, deformed 90-ring spheres,
+     T padded to 32768), the small() shape (128^2, T 8192), a depth-peel
+     layer and a ragged size; the comparison rule of the JAX package's
+     Pallas test; kernel, plain and bound times
+  6  the flagship render chain: one env prefiltered on the card (512 base,
+     6 specular mips), `collate_render` of 2 scenes at DataConfig()
+     (512^2, SSAA 2, T 32768, 256^2 textures), its 8 maps through
+     `mask2image_3mod_albedo` (flagship width, random bf16 weights, 20
+     steps, material_image_encode); collate cold/warm times, K4's share,
+     launches of all three kernels on this path
+  7  the held-out forward PSNR: the seed-99 held-out set (32 meshes, 8
+     envs) generated on the card, the trained small() weights in bf16,
+     `eval.quality.forward_psnr` over 32 objects, 20 steps; fails more
+     than 1 dB below QUALITY_r05_fixed.json's 25.17 dB
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -46,8 +61,14 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 CARD_REL = 2.0 ** -7             # bf16 output rounding, relative to max|ref|
 SMALL_MODEL_REL = 0.05           # bf16 small() model vs f32, rel. to max|ref|
 SMALL_RENDER_MEAN_ABS = 0.1      # bf16 vs f32 forward render, mean |diff|
+FP32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+RAST_TILE = 16                   # csrc/rasterize.cu's tile side
+RAST_TEST_FLOPS = 12             # 3 edge functions, 2 mul + 2 add each
 DUAL_NPZ = "artifacts/r05/dual_small.npz"
 VAE_NPZ = "artifacts/r04/vae_small.npz"
+PSNR_REFERENCE = 25.167056013939117  # QUALITY_r05_fixed.json, n=32
+PSNR_MARGIN = 1.0                # dB below the reference that fails
+ALL_PHASES = "0,1,2,3,4,5,6,7"
 
 
 def log(msg: str) -> None:
@@ -217,26 +238,29 @@ def synthetic_request(torch, F, gen, batch, res):
     return req
 
 
-def reset_counters():
+def _wrappers():
     from unirenderer_tpu_torch.ops.flash_attention import flash_attention
     from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
-    for w in (fused_groupnorm_silu, flash_attention):
+    from unirenderer_tpu_torch.ops.rasterize import rasterize
+    return {"groupnorm_silu": fused_groupnorm_silu,
+            "flash_attention": flash_attention, "rasterize": rasterize}
+
+
+def reset_counters():
+    for w in _wrappers().values():
         w.launches = 0
         w.seen.clear()
 
 
 def read_counters():
-    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
-    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
-    return ({"groupnorm_silu": fused_groupnorm_silu.launches,
-             "flash_attention": flash_attention.launches},
-            {"groupnorm_silu": set(fused_groupnorm_silu.seen),
-             "flash_attention": set(flash_attention.seen)})
+    wrappers = _wrappers()
+    return ({k: w.launches for k, w in wrappers.items()},
+            {k: set(w.seen) for k, w in wrappers.items()})
 
 
-def phase_main_path(torch, F, cfg, checked, profile):
+def flagship_pipeline(torch, cfg):
+    """Random bf16 flagship weights made on the card from the seed."""
     from unirenderer_tpu_torch.pipelines import UniRendererPipeline
-    batch, res = 2, cfg.vae.sample_size
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t = time.perf_counter()
     pipe = UniRendererPipeline.create(cfg, gen, device="cuda",
@@ -246,6 +270,12 @@ def phase_main_path(torch, F, cfg, checked, profile):
                    for p in m.parameters())
     log(f"  flagship weights on the card: {n_params / 1e9:.3f} B params "
         f"bf16 in {time.perf_counter() - t:.1f} s")
+    return pipe, n_params
+
+
+def phase_main_path(torch, F, cfg, pipe, n_params, checked, profile):
+    batch, res = 2, cfg.vae.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     req = synthetic_request(torch, F, gen, batch, res)
 
     reset_counters()
@@ -261,8 +291,9 @@ def phase_main_path(torch, F, cfg, checked, profile):
     check(tuple(out.shape) == (batch, res, res, 3),
           f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite output")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    for name in ("groupnorm_silu", "flash_attention"):
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the main path")
         missed = seen[name] - checked[name]
         check(not missed, f"{name} got calls phase 2 did not check: "
               f"{sorted(missed)[:3]}")
@@ -283,7 +314,6 @@ def phase_main_path(torch, F, cfg, checked, profile):
                   params=n_params)
     if profile:
         result["profile"] = profile_request(torch, pipe, req, gen)
-    del pipe
     torch.cuda.empty_cache()
     return result
 
@@ -414,6 +444,321 @@ def phase_small_weights(torch, F):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the rasterizer against its plain version
+# ---------------------------------------------------------------------------
+
+
+def deformed_spheres(torch, views, sphere_res, v_pad, t_pad, seed):
+    """Clip positions (B, v_pad, 4) and triangles (B, t_pad, 3) on the card:
+    deformed spheres (the data generator's `make_shape`), unit-normalised,
+    each seen from a random camera at distance 4 (the test split's pose
+    sampler)."""
+    import numpy as np
+    from unirenderer_tpu_torch.data.synthetic import make_shape
+    from unirenderer_tpu_torch.ops.transform import xfm_points
+    from unirenderer_tpu_torch.render import camera
+    from unirenderer_tpu_torch.render.mesh import (
+        make_sphere, unit_normalize_mesh,
+    )
+    rng = np.random.default_rng(seed)
+    base = make_sphere(sphere_res)
+    pos, tris = [], []
+    for _ in range(views):
+        v = np.zeros((v_pad, 3), np.float32)
+        v[:base.v_pos.shape[0]] = unit_normalize_mesh(
+            make_shape(base.v_pos, rng))
+        t = np.zeros((t_pad, 3), np.int32)
+        t[:base.t_pos_idx.shape[0]] = base.t_pos_idx
+        mvp, _ = camera.spherical_camera(rng.uniform(0, 360),
+                                         rng.uniform(30, 150), 4.0)
+        pos.append(xfm_points(torch.from_numpy(v)[None].cuda(),
+                              mvp[None].cuda())[0])
+        tris.append(torch.from_numpy(t).cuda())
+    return torch.stack(pos).contiguous(), torch.stack(tris).contiguous()
+
+
+def rast_bound(torch, pos, tri, h, w, peel):
+    """Least time for the work: the per-triangle records in (64 B each)
+    and the outputs out (16 B a pixel; prev_z in, 4 B) at the HBM rate, or
+    the edge tests the 16x16 tile bins imply (every pixel of every tile a
+    live triangle's box overlaps, 12 f32 operations each) at the f32 rate,
+    whichever is larger."""
+    from unirenderer_tpu_torch.ops.rasterize import _setup
+    rec, box = _setup(pos, tri, h, w)
+    nb, t = tri.shape[:2]
+    live = rec[..., 9] != 0
+    box = torch.where(live[..., None], box, torch.zeros_like(box))
+    n_tx, n_ty = -(-w // RAST_TILE), -(-h // RAST_TILE)
+
+    def tiles(lo, hi, n):
+        first = torch.floor(lo / RAST_TILE).clamp(min=0)
+        last = (torch.ceil(hi / RAST_TILE) - 1).clamp(max=n - 1)
+        return (last - first + 1).clamp(min=0)
+
+    per_tri = tiles(box[..., 0], box[..., 1], n_tx) * tiles(
+        box[..., 2], box[..., 3], n_ty)
+    tests = float((per_tri * live).sum().item()) * RAST_TILE * RAST_TILE
+    nbytes = nb * t * 64 + nb * h * w * (16 + (4 if peel else 0))
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = tests * RAST_TEST_FLOPS / FP32_FLOPS * 1e3
+    return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else
+            "operations", tests)
+
+
+def rast_case(torch, timer, name, pos, tri, h, w, prev_z=None):
+    from unirenderer_tpu_torch.ops.rasterize import (
+        match_stats, rasterize, rasterize_reference, within_rule,
+    )
+    got = rasterize(pos, tri, h, w, prev_z=prev_z)
+    want = rasterize_reference(pos, tri, h, w, prev_z=prev_z)
+    torch.cuda.synchronize()
+    stats = match_stats(got, want)
+    hits = (got.tri_id > 0).float().mean().item()
+    del got, want
+    ms = timer(lambda: rasterize(pos, tri, h, w, prev_z=prev_z))
+    plain_ms = timer(lambda: rasterize_reference(pos, tri, h, w,
+                                                 prev_z=prev_z))
+    bound_ms, bound_by, tests = rast_bound(torch, pos, tri, h, w,
+                                           prev_z is not None)
+    return dict(kernel="rasterize", case=name,
+                shape=[tri.shape[0], pos.shape[1], tri.shape[1], h, w],
+                peel=prev_z is not None, ok=within_rule(stats), **stats,
+                max_abs_err=max(stats["z_err"], stats["uv_err"]),
+                coverage=hits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, edge_tests=tests, library_ms=None)
+
+
+def rast_signatures(cfg):
+    """The rasterizer calls phase 5 checks, in the form the wrapper records
+    in `.seen`: the flagship collate's (plain and peeled) and small()'s."""
+    from unirenderer_tpu_torch.core import config
+    out = set()
+    for d, peels in ((cfg.data, (False, True)),
+                     (config.small().data, (False,))):
+        res = d.resolution * d.ssaa
+        for peel in peels:
+            out.add(((2, d.v_pad, 4), (2, d.t_pad, 3), res, res, peel))
+    return out
+
+
+def phase_rasterize(torch, cfg, timer):
+    """K4 at the flagship collate's shape, the small() collate's shape, a
+    peel layer and a ragged size."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.ops.rasterize import rasterize_reference
+    d, s = cfg.data, config.small().data
+    flag = cfg.data.resolution * cfg.data.ssaa
+    small = s.resolution * s.ssaa
+    pos, tri = deformed_spheres(torch, 2, 90, d.v_pad, d.t_pad, SEED)
+    cases = [rast_case(torch, timer, "flagship collate", pos, tri, flag,
+                       flag)]
+    first = rasterize_reference(pos, tri, flag, flag)
+    cases.append(rast_case(torch, timer, "flagship peel", pos, tri, flag,
+                           flag, prev_z=first.z.contiguous()))
+    del first
+    cases.append(rast_case(torch, timer, "ragged", pos[:1], tri[:1], 1000,
+                           744))
+    pos_s, tri_s = deformed_spheres(torch, 2, 32, s.v_pad, s.t_pad, SEED + 1)
+    cases.append(rast_case(torch, timer, "small collate", pos_s, tri_s,
+                           small, small))
+    for r in cases:
+        log(f"  rasterize {r['case']:16s} {json.dumps(r['shape'])} "
+            f"coverage {r['coverage']:.3f}: cover diff "
+            f"{r['coverage_mismatch']} z err {r['z_err']:.2g} id diff "
+            f"{100 * r['id_mismatch']:.3f}% uv err {r['uv_err']:.2g} "
+            f"bit-equal {int(r['bit_equal'])} "
+            f"{'ok' if r['ok'] else 'FAIL'}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}; {r['edge_tests']:.3g} edge tests)")
+    torch.cuda.empty_cache()
+    bad = [r["case"] for r in cases if not r["ok"]]
+    check(not bad, f"rasterize cases outside the rule: {bad}")
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the flagship render chain
+# ---------------------------------------------------------------------------
+
+
+def flagship_items(torch, cfg, rng):
+    """Two scenes at DataConfig(): a prefiltered env (on the card), deformed
+    90-ring spheres with 256^2 procedural textures, materials from the grid
+    and random cameras; the dataset's item layout."""
+    from unirenderer_tpu_torch.data.objaverse import material_grid, pad_mesh
+    from unirenderer_tpu_torch.data.synthetic import (
+        make_env_latlong, make_shape, make_texture,
+    )
+    from unirenderer_tpu_torch.ops.cubemap import (
+        build_env_mips, latlong_to_cubemap,
+    )
+    from unirenderer_tpu_torch.render.mesh import (
+        auto_normals, compute_tangents, make_sphere, unit_normalize_mesh,
+    )
+    d, r = cfg.data, cfg.render
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    latlong = torch.from_numpy(make_env_latlong(rng)).cuda()
+    spec, diff = build_env_mips(latlong_to_cubemap(latlong, r.env_res),
+                                min_res=r.env_min_res)
+    torch.cuda.synchronize()
+    env_s = time.perf_counter() - t
+    env = {f"specular_{i}": m.cpu().numpy() for i, m in enumerate(spec)}
+    env["diffuse"] = diff.cpu().numpy()
+    log(f"  env prefiltered on the card in {env_s:.2f} s: specular "
+        f"{[m.shape[1] for m in spec]}, diffuse {diff.shape[1]}")
+    base = make_sphere(90)
+    grid = material_grid(d.material_grid)
+    items = []
+    for _ in range(2):
+        v = unit_normalize_mesh(make_shape(base.v_pos, rng))
+        n = auto_normals(v, base.t_pos_idx)
+        tng = compute_tangents(v, base.t_pos_idx, base.v_tex,
+                               base.t_pos_idx, n, base.t_pos_idx)
+        tex = make_texture(d.texture_res, rng)
+        mesh = pad_mesh(dict(v_pos=v, t_idx=base.t_pos_idx, v_nrm=n,
+                             v_tex=base.v_tex, v_tng=tng), d.v_pad, d.t_pad)
+        mesh["kd_tex"] = tex
+        met, rough = grid[rng.integers(len(grid))]
+        items.append(dict(mesh=mesh, env=env, metallic=met,
+                          roughness=rough, azimuth=rng.uniform(0, 360),
+                          elevation=rng.uniform(30, 150),
+                          distance=d.camera_distance))
+    return items, env_s
+
+
+def collate_profile(torch, items, d):
+    """Device time of one warm collate (torch.profiler): total busy, the
+    rasterizer kernel's, and the wall of the profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from unirenderer_tpu_torch.data.objaverse import collate_render
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        collate_render(items, resolution=d.resolution, ssaa=d.ssaa,
+                       device="cuda")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [(e.self_device_time_total / 1e3, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for ms, _ in kernels)
+    k4 = sum(ms for ms, key in kernels if "rast_tile_kernel" in key)
+    top = sorted(kernels, reverse=True)[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, k4_device_ms=k4,
+                top=[dict(ms=ms, name=key[:90]) for ms, key in top])
+
+
+def phase_render_chain(torch, cfg, pipe, checked, rast_checked):
+    import numpy as np
+    from unirenderer_tpu_torch.data.objaverse import collate_render
+    d = cfg.data
+    rng = np.random.default_rng(SEED)
+    items, env_s = flagship_items(torch, cfg, rng)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    maps = collate_render(items, resolution=d.resolution, ssaa=d.ssaa,
+                          device="cuda")
+    torch.cuda.synchronize()
+    collate_cold = time.perf_counter() - t
+    after_collate, _ = read_counters()
+    t = time.perf_counter()
+    out = pipe.mask2image_3mod_albedo(
+        normal=maps["normal"], albedo=maps["albedo"],
+        spec_light=maps["spec_light"], diff_light=maps["diff_light"],
+        env=maps["env"], mask=maps["mask"], metallic=maps["metallic"],
+        roughness=maps["roughness"], generator=gen,
+        material_image_encode=True)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t
+    launches, seen = read_counters()
+
+    res = d.resolution
+    for k in ("image", "mask", "material", "normal", "albedo", "spec_light",
+              "diff_light", "env"):
+        check(tuple(maps[k].shape) == (2, res, res, 3),
+              f"collate map {k} has shape {tuple(maps[k].shape)}")
+        check(bool(torch.isfinite(maps[k]).all()), f"collate map {k}")
+    coverage = [((maps["mask"][i] > 0).float().mean().item())
+                for i in range(2)]
+    check(all(0.02 < c < 0.98 for c in coverage),
+          f"mask coverage {coverage}")
+    check(tuple(out.shape) == (2, res, res, 3), "render chain output shape")
+    check(bool(torch.isfinite(out).all()), "render chain output not finite")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched on the render chain")
+    for name in ("groupnorm_silu", "flash_attention"):
+        missed = seen[name] - checked[name]
+        check(not missed, f"{name} got calls phase 2 did not check: "
+              f"{sorted(missed)[:3]}")
+    missed = seen["rasterize"] - rast_checked
+    check(not missed, f"rasterize got calls phase 5 did not check: "
+          f"{sorted(missed)}")
+
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        collate_render(items, resolution=d.resolution, ssaa=d.ssaa,
+                       device="cuda")
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    prof = collate_profile(torch, items, d)
+    log(f"  collate of 2 scenes at {res}^2 x SSAA {d.ssaa} "
+        f"(T {d.t_pad}, {d.texture_res}^2 textures): cold "
+        f"{collate_cold * 1e3:.1f} ms, warm {min(warm) * 1e3:.1f}-"
+        f"{max(warm) * 1e3:.1f} ms; K4 launches per collate "
+        f"{after_collate['rasterize']}; mask coverage "
+        f"{[round(c, 3) for c in coverage]}")
+    log(f"  profiled collate: wall {prof['wall_ms']:.1f} ms (profiler on), "
+        f"device busy {prof['device_busy_ms']:.2f} ms, K4 "
+        f"{prof['k4_device_ms']:.3f} ms = "
+        f"{100 * prof['k4_device_ms'] / max(prof['device_busy_ms'], 1e-9):.1f}"
+        f"% of device time")
+    for k in prof["top"]:
+        log(f"    {k['ms']:9.3f} ms  {k['name']}")
+    log(f"  forward render of the 8 maps (material_image_encode, "
+        f"{cfg.sampler.num_steps} steps): wall {forward_s:.3f} s; launches "
+        f"on the chain {launches}; output range "
+        f"[{out.min().item():.3f}, {out.max().item():.3f}]")
+    return dict(env_prefilter_s=env_s, collate_cold_s=collate_cold,
+                collate_warm_s=warm, forward_s=forward_s,
+                launches=launches,
+                k4_per_collate=after_collate["rasterize"],
+                mask_coverage=coverage, collate_profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the held-out forward PSNR
+# ---------------------------------------------------------------------------
+
+
+def phase_held_out(torch):
+    from unirenderer_tpu_torch.eval.quality import (
+        held_out_psnr, small_trained_pipeline,
+    )
+    t = time.perf_counter()
+    pipe = small_trained_pipeline("cuda", torch.bfloat16)
+    r = held_out_psnr(pipe, n=32, num_steps=20, noise_seeds=(1000,),
+                      log=lambda msg: log(f"  {msg}"))
+    value = r["psnr_forward_render"]
+    log(f"  held-out forward PSNR {value:.3f} dB (n=32, 20 steps, bf16 on "
+        f"the card) beside QUALITY_r05_fixed's {PSNR_REFERENCE:.2f} dB; "
+        f"set generated in {r['generate_seconds']:.1f} s, phase "
+        f"{time.perf_counter() - t:.1f} s")
+    check(value >= PSNR_REFERENCE - PSNR_MARGIN,
+          f"held-out forward PSNR {value:.3f} dB is more than "
+          f"{PSNR_MARGIN} dB below {PSNR_REFERENCE:.2f}")
+    return r
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -428,6 +773,11 @@ KERNELS = {
         replaces="unirenderer_tpu/ops/flash_attention.py:68",
         # the 64^2 self-attention: most of the path's attention work
         headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "rasterize": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/rasterize.cu",
+        replaces="unirenderer_tpu/ops/rasterize_pallas.py:134",
+        # the flagship collate's raster: 2 views at 1024^2, T 32768
+        headline=lambda r: r.get("case") == "flagship collate"),
 }
 
 
@@ -453,7 +803,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json (every case)")
-    ap.add_argument("--phases", default="0,1,2,3,4")
+    ap.add_argument("--phases", default=ALL_PHASES)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -499,7 +849,11 @@ def main(argv=None) -> int:
             record["build"] = {b.name: b.seconds for b in built.values()}
 
         cfg = config.flagship()
-        gn_cases, attn_cases = kernel_cases(cfg, 2, cfg.vae.sample_size)
+        gn_cases, attn_cases = set(), set()
+        for encode in (False, True):        # phase 3, phase 6
+            gn, attn = kernel_cases(cfg, 2, cfg.vae.sample_size, encode)
+            gn_cases |= gn
+            attn_cases |= attn
         checked = {"groupnorm_silu": set(gn_cases),
                    "flash_attention": set(attn_cases)}
         # ---- 2: kernels against their plain versions
@@ -528,11 +882,15 @@ def main(argv=None) -> int:
             record["kernel_cases"] = results
             log("phase 2 done")
         launches = {}
+        pipe = None
+        if phases & {3, 6}:
+            pipe, n_params = flagship_pipeline(torch, cfg)
         # ---- 3: main path
         if 3 in phases:
             log("phase 3 main path: flagship, 2 requests, "
                 f"{cfg.sampler.num_steps} steps")
-            main_path = phase_main_path(torch, F, cfg, checked, args.profile)
+            main_path = phase_main_path(torch, F, cfg, pipe, n_params,
+                                        checked, args.profile)
             launches = main_path["launches"]
             record["main_path"] = main_path
             log("phase 3 done")
@@ -541,6 +899,32 @@ def main(argv=None) -> int:
             log("phase 4 converter on the card: small() trained weights")
             record["small_weights"] = phase_small_weights(torch, F)
             log("phase 4 done")
+        # ---- 5: the rasterizer
+        if 5 in phases:
+            log("phase 5 rasterizer vs its plain version (f32; the rule "
+                "of the JAX package's Pallas test)")
+            timer = Timer(torch)
+            rast_cases = phase_rasterize(torch, cfg, timer)
+            del timer
+            results += rast_cases
+            record["rasterize_cases"] = rast_cases
+            log("phase 5 done")
+        # ---- 6: the flagship render chain
+        if 6 in phases:
+            log("phase 6 render chain: env prefilter, collate of 2 flagship "
+                "scenes, forward render of its maps")
+            chain = phase_render_chain(torch, cfg, pipe, checked,
+                                       rast_signatures(cfg))
+            launches["rasterize"] = chain["launches"]["rasterize"]
+            record["render_chain"] = chain
+            log("phase 6 done")
+        del pipe
+        torch.cuda.empty_cache()
+        # ---- 7: held-out forward PSNR
+        if 7 in phases:
+            log("phase 7 held-out forward PSNR: trained small() weights")
+            record["held_out_psnr"] = phase_held_out(torch)
+            log("phase 7 done")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -550,7 +934,7 @@ def main(argv=None) -> int:
             with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
                 json.dump(record, f, indent=1, default=str)
 
-    if phases != {0, 1, 2, 3, 4}:
+    if phases != {int(p) for p in ALL_PHASES.split(",")}:
         log(f"phases {sorted(phases)} passed (partial run: no result line)")
         return 0
     log("all phases passed")

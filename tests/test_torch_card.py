@@ -9,7 +9,13 @@ and no JAX it runs on its own:
 Tolerance: bf16 in and out, max|kernel - plain| <= 2^-7 * max|plain|: the
 rounding of a bf16 output plus the bf16 rounding of the softmax
 probabilities fed to the tensor cores.  The plain versions run in f32 on
-the same bf16 inputs, with TF32 off.
+the same bf16 inputs, with TF32 off.  The rasterizer (f32) is held to the
+rule of tests/test_rasterize_pallas.py (`ops.rasterize.within_rule`:
+coverage equal, z and u, v within 1e-5, < 2 % of triangle ids different,
+only where both sides hit); the collate on the card to 1e-3 against the
+same collate on the CPU on >= 99 % of values (clip positions from cuBLAS
+and from the CPU can differ by an ulp, which can move a silhouette
+subsample).
 """
 
 import numpy as np
@@ -23,6 +29,9 @@ from unirenderer_tpu_torch.ops.flash_attention import (
 )
 from unirenderer_tpu_torch.ops.groupnorm import (
     fused_groupnorm_silu, groupnorm_silu_reference,
+)
+from unirenderer_tpu_torch.ops.rasterize import (
+    match_stats, rasterize, rasterize_reference, within_rule,
 )
 from unirenderer_tpu_torch.pipelines import UniRendererPipeline
 
@@ -132,3 +141,87 @@ def test_tiny_pipeline_on_card_runs_both_kernels(card):
     assert torch.isfinite(out).all()
     assert fused_groupnorm_silu.launches > n_gn
     assert flash_attention.launches > n_fa
+
+
+def _deformed_spheres(card, views, res, t_pad, seed):
+    """Clip positions (B, t_pad, 4) and triangles (B, t_pad, 3) of deformed
+    spheres (the data generator's shapes) seen from random cameras."""
+    from unirenderer_tpu_torch.data.synthetic import make_shape
+    from unirenderer_tpu_torch.ops.transform import xfm_points
+    from unirenderer_tpu_torch.render import camera
+    from unirenderer_tpu_torch.render.mesh import (
+        make_sphere, unit_normalize_mesh,
+    )
+    rng = np.random.default_rng(seed)
+    base = make_sphere(res)
+    pos, tris = [], []
+    for _ in range(views):
+        v = np.zeros((t_pad, 3), np.float32)
+        v[:base.v_pos.shape[0]] = unit_normalize_mesh(
+            make_shape(base.v_pos, rng))
+        t = np.zeros((t_pad, 3), np.int32)
+        t[:base.t_pos_idx.shape[0]] = base.t_pos_idx
+        mvp, _ = camera.spherical_camera(rng.uniform(0, 360),
+                                         rng.uniform(30, 150), 4.0)
+        pos.append(xfm_points(torch.from_numpy(v)[None].to(card),
+                              mvp[None].to(card))[0])
+        tris.append(torch.from_numpy(t).to(card))
+    return torch.stack(pos), torch.stack(tris)
+
+
+@pytest.mark.parametrize("views,res,t_pad,h,w", [
+    (2, 32, 8192, 128, 128),            # the small() collate shape
+    (1, 20, 2048, 75, 53),              # ragged: not multiples of 16
+])
+def test_rasterize_kernel(card, views, res, t_pad, h, w):
+    pos, tri = _deformed_spheres(card, views, res, t_pad, seed=h)
+    n = rasterize.launches
+    got = rasterize(pos, tri, h, w)
+    torch.cuda.synchronize()
+    assert rasterize.launches == n + 1
+    want = rasterize_reference(pos, tri, h, w)
+    stats = match_stats(got, want)
+    assert within_rule(stats), stats
+    assert (got.tri_id > 0).float().mean() > 0.05
+
+
+def test_rasterize_kernel_peels(card):
+    pos, tri = _deformed_spheres(card, 2, 32, 8192, seed=3)
+    first = rasterize_reference(pos, tri, 128, 128)
+    got = rasterize(pos, tri, 128, 128, prev_z=first.z.contiguous())
+    want = rasterize_reference(pos, tri, 128, 128, prev_z=first.z)
+    stats = match_stats(got, want)
+    assert within_rule(stats), stats
+    assert (got.tri_id > 0).any()          # the back of the shape
+
+
+def test_rasterize_kernel_refuses_what_it_does_not_take(card):
+    pos, tri = _deformed_spheres(card, 1, 8, 256, seed=4)
+    with pytest.raises(TypeError):
+        rasterize(pos.double(), tri, 16, 16)
+    with pytest.raises(ValueError):
+        rasterize(pos, tri, 16, 16,
+                  prev_z=torch.zeros((1, 8, 8), device=card))
+
+
+def test_collate_render_on_card_matches_cpu(card, tmp_path):
+    """small(): the held-out generator's data, 4 items, on the card (K4)
+    and on the CPU (plain versions)."""
+    from unirenderer_tpu_torch.data import objaverse, synthetic
+    from unirenderer_tpu_torch.eval.quality import held_out_paths
+    synthetic.write_dataset(str(tmp_path), n_mesh=4, n_env=2, env_res=32,
+                            env_min_res=8, seed=99, device="cpu")
+    meshes, envs = held_out_paths(str(tmp_path))
+    ds = objaverse.ObjaverseDataTest(config.small().data, meshes, envs,
+                                     seed=1234)
+    items = [ds[i] for i in range(4)]
+    n = rasterize.launches
+    got = objaverse.collate_render(items, resolution=64, device=card)
+    torch.cuda.synchronize()
+    assert rasterize.launches == n + 1
+    want = objaverse.collate_render(items, resolution=64, device="cpu")
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert g.shape == w.shape and torch.isfinite(g).all(), k
+        close = ((g - w).abs() <= 1e-3).float().mean().item()
+        assert close >= 0.99, (k, close)

@@ -112,6 +112,40 @@ def test_forward_render_matches_jax(pipes, b, seed):
     assert err <= 1e-3, err
 
 
+def test_material_image_encode_matches_jax(pipes):
+    """`material_image_encode=True`: the masked [m, m, r] material image is
+    VAE-encoded as a seventh map, so the posterior noise is 7 * B maps in
+    the JAX dict order (normal, albedo, spec_light, diff_light, env, mask,
+    material).  Tolerance 1e-3 as for the slice.  The result must differ
+    from the raw-latent path."""
+    jpipe, tpipe = pipes
+    cfg = jpipe.cfg
+    steps, b = 3, 2
+    req = _request(cfg, b, seed=9)
+    rng = jax.random.key(9)
+    want = np.asarray(jpipe.mask2image_3mod_albedo(
+        **{k: jnp.asarray(v) for k, v in req.items()}, rng=rng,
+        num_steps=steps, material_image_encode=True))
+    k_enc, k_noise = jax.random.split(rng)
+    lat = cfg.vae.sample_size // cfg.vae.downscale
+    enc_noise = np.asarray(jax.random.normal(
+        k_enc, ((len(MAPS) + 1) * b, lat, lat, 4)))
+    img_noise = np.asarray(jax.random.normal(k_noise, (b, lat, lat, 4)))
+    got = tpipe.mask2image_3mod_albedo_with_noise(
+        **req, enc_noise=enc_noise, img_noise=img_noise, num_steps=steps,
+        material_image_encode=True)
+    assert np.abs(want).max() > 0.05
+    assert np.abs(got.numpy() - want).max() <= 1e-3
+    raw = tpipe.mask2image_3mod_albedo_with_noise(
+        **req, enc_noise=enc_noise[:len(MAPS) * b], img_noise=img_noise,
+        num_steps=steps)
+    assert np.abs(raw.numpy() - want).max() > 1e-2
+    drawn = tpipe.mask2image_3mod_albedo(
+        **req, generator=torch.Generator().manual_seed(0), num_steps=1,
+        material_image_encode=True)
+    assert drawn.shape == (b, cfg.vae.sample_size, cfg.vae.sample_size, 3)
+
+
 def test_public_entry_draws_noise_from_generator(pipes):
     _, tpipe = pipes
     req = _request(tpipe.cfg, 2, seed=5)
@@ -124,19 +158,31 @@ def test_public_entry_draws_noise_from_generator(pipes):
     assert not torch.equal(outs[0], outs[2])
 
 
-@pytest.mark.parametrize("b", [1, 2])
-def test_kernel_cases_are_the_shapes_the_path_runs(pipes, b):
-    """kernel_cases(), from which the card check builds its cases, lists
-    exactly the calls one request makes of each kernel."""
-    _, tpipe = pipes
+def _kernel_calls(tpipe, b, material_image_encode):
     fused_groupnorm_silu.seen.clear()
     flash_attention.seen.clear()
     tpipe.mask2image_3mod_albedo(
         **_request(tpipe.cfg, b, seed=3), num_steps=1,
-        generator=torch.Generator().manual_seed(0))
-    gn, attn = kernel_cases(tpipe.cfg, b, tpipe.cfg.vae.sample_size)
-    assert fused_groupnorm_silu.seen == gn
-    assert flash_attention.seen == attn
+        generator=torch.Generator().manual_seed(0),
+        material_image_encode=material_image_encode)
+    return (kernel_cases(tpipe.cfg, b, tpipe.cfg.vae.sample_size,
+                         material_image_encode),
+            (fused_groupnorm_silu.seen, flash_attention.seen))
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_kernel_cases_are_the_shapes_the_path_runs(pipes, b):
+    """kernel_cases(), from which the card check builds its cases, lists
+    exactly the calls one request makes of each kernel."""
+    want, seen = _kernel_calls(pipes[1], b, False)
+    assert seen == want
+
+
+def test_kernel_cases_with_material_image_encode(pipes):
+    """The same with the material image as a seventh VAE-encoded map."""
+    want, seen = _kernel_calls(pipes[1], 2, True)
+    assert seen == want
+    assert want != _kernel_calls(pipes[1], 2, False)[0]
 
 
 def test_entry_points_default_to_the_card():

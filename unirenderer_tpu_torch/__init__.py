@@ -1,15 +1,20 @@
 """unirenderer_tpu_torch: the PyTorch/CUDA port of `unirenderer_tpu`.
 
 The JAX package stays the reference; this package re-implements its
-forward-rendering path (`UniRendererPipeline.mask2image_3mod_albedo`) in
-PyTorch for an NVIDIA H100, with the two TPU kernels on that path written
-by hand in CUDA (`csrc/`).  Module names mirror the JAX package:
+forward-rendering path (`UniRendererPipeline.mask2image_3mod_albedo`),
+its split-sum renderer and render collate, in PyTorch for an NVIDIA H100,
+with the TPU kernels on those paths written by hand in CUDA (`csrc/`).
+Module names mirror the JAX package:
 
     core/       configs (own copy), npz reader, flax -> torch weight converter
     diffusion/  DDPM x0 schedule and the UniPC sampler step
-    ops/        kernel wrappers (GroupNorm+SiLU, flash attention) and the
-                nvcc build of `csrc/*.cu`
+    ops/        kernel wrappers (GroupNorm+SiLU, flash attention, the tile
+                rasterizer), the nvcc build of `csrc/*.cu`, and the
+                renderer's transforms, textures and cubemaps
     models/     nn.Modules: layers, UNet blocks, CLIP text, VAE, dual stream
+    render/     meshes, cameras, environment lights, `render_mesh`
+    data/       datasets, the render collate, the synthetic data generator
+    eval/       PSNR and the held-out forward-PSNR leg
     pipelines   UniRendererPipeline (forward rendering)
 
 Public functions keep the JAX package's NHWC / (B, S, H, D) layouts.

@@ -1,10 +1,10 @@
 """Typed configuration: the port's own copy of `unirenderer_tpu.core.config`.
 
-Only the parts the forward-rendering path reads are carried over: the
-model geometries (UNet, VAE, CLIP text), the diffusion schedule and the
-sampler recipe, with the same defaults and the same `flagship()`,
-`small()` and `tiny()` presets.  Renderer, data and training settings
-come with the slices that use them.
+Only the parts the ported paths read are carried over: the model
+geometries (UNet, VAE, CLIP text), the diffusion schedule, the sampler
+recipe, the renderer and the data settings, with the same defaults and
+the same `flagship()`, `small()` and `tiny()` presets.  Training settings
+come with the slice that uses them.
 """
 
 from __future__ import annotations
@@ -85,12 +85,48 @@ class SamplerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Split-sum PBR renderer."""
+    resolution: int = 512
+    env_res: int = 512                              # base cubemap face size
+    env_min_res: int = 16                           # coarsest specular mip
+    min_roughness: float = 0.04
+    max_mip_level: int = 4                          # len(mips)-2, see get_mip
+    spp: int = 1                                    # supersamples per pixel
+    near: float = 0.1
+    far: float = 1000.0
+    fovy_deg: float = 30.0
+    raster_chunk: int = 1024                        # triangles per chunk
+    layers: int = 1                                 # depth peel layers
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset and render-collate settings."""
+    root_dir: str = ""
+    env_dir: str = ""
+    meta_json: str = ""
+    resolution: int = 512
+    random_camera: bool = False     # False: the train split's pinned camera
+    camera_distance: float = 4.0
+    material_grid: int = 11                         # 11x11 metallic/roughness
+    num_workers: int = 8
+    ssaa: int = 2                   # supersampling factor of the collate
+    v_pad: int = 32768              # static mesh padding (vertices)
+    t_pad: int = 32768              # static mesh padding (triangles)
+    texture_res: int = 256          # static albedo-texture resolution
+    rotation_augment: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class SystemConfig:
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     text: TextEncoderConfig = dataclasses.field(default_factory=TextEncoderConfig)
     diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
 
 
 def flagship() -> SystemConfig:
@@ -121,6 +157,10 @@ def small() -> SystemConfig:
             vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
             max_length=16, intermediate_size=512,
         ),
+        render=RenderConfig(resolution=64, env_res=32, env_min_res=8,
+                            max_mip_level=2, raster_chunk=256),
+        data=DataConfig(resolution=64, texture_res=64,
+                        v_pad=4096, t_pad=8192, random_camera=True),
     )
 
 
@@ -147,4 +187,8 @@ def tiny(latent_size: int = 8) -> SystemConfig:
             max_length=16, intermediate_size=64,
         ),
         sampler=SamplerConfig(num_steps=3),
+        render=RenderConfig(resolution=32, env_res=16, env_min_res=4,
+                            max_mip_level=1, raster_chunk=64),
+        data=DataConfig(resolution=16, texture_res=32,
+                        v_pad=4096, t_pad=8192, random_camera=True),
     )

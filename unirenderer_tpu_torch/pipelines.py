@@ -3,7 +3,9 @@
 
 `mask2image_3mod_albedo` takes intrinsic maps (normal, albedo, specular
 and diffuse light, environment, mask; (B, H, W, 3) in [-1, 1]) plus
-metallic/roughness, VAE-encodes the maps in chunks of `VAE_CHUNK`, runs
+metallic/roughness, VAE-encodes the maps in chunks of `VAE_CHUNK` (with
+`material_image_encode`, the masked [m, m, r] material image as a
+seventh map, as training feeds it; else the raw constant latent), runs
 the attribute encoder once (the attribute stream is clean at t_attr = 0,
 so its residuals are loop-invariant), then denoises the image latent with
 UniPC, one UNet pass per step, and VAE-decodes the result.  The JAX
@@ -191,16 +193,20 @@ class UniRendererPipeline:
     def mask2image_3mod_albedo(self, *, normal, albedo, spec_light,
                                diff_light, env, mask, metallic, roughness,
                                generator: torch.Generator,
-                               num_steps: Optional[int] = None
+                               num_steps: Optional[int] = None,
+                               material_image_encode: bool = False
                                ) -> torch.Tensor:
         """Forward rendering: intrinsics -> RGB (B, H, W, 3) in [-1, 1].
 
         `generator` (on the pipeline's device) draws the VAE posterior noise
-        and the initial image noise."""
+        and the initial image noise.  `material_image_encode`: VAE-encode
+        the masked [m, m, r] material image, as training feeds it, instead
+        of the raw constant latent [m, m, r, r] * 2 - 1."""
         b, hgt, wid, _ = np.shape(normal)
         f = self.cfg.vae.downscale
         lat_shape = (b, hgt // f, wid // f, LATENT_CHANNELS)
-        enc_noise = torch.randn((len(_MAP_NAMES) * b,) + lat_shape[1:],
+        n_maps = len(_MAP_NAMES) + int(material_image_encode)
+        enc_noise = torch.randn((n_maps * b,) + lat_shape[1:],
                                 generator=generator, device=self.device)
         img_noise = torch.randn(lat_shape, generator=generator,
                                 device=self.device)
@@ -208,7 +214,7 @@ class UniRendererPipeline:
             normal=normal, albedo=albedo, spec_light=spec_light,
             diff_light=diff_light, env=env, mask=mask, metallic=metallic,
             roughness=roughness, enc_noise=enc_noise, img_noise=img_noise,
-            num_steps=num_steps)
+            num_steps=num_steps, material_image_encode=material_image_encode)
 
     mask2image_3mod_albedo_black = mask2image_3mod_albedo
 
@@ -216,20 +222,31 @@ class UniRendererPipeline:
     def mask2image_3mod_albedo_with_noise(
             self, *, normal, albedo, spec_light, diff_light, env, mask,
             metallic, roughness, enc_noise, img_noise,
-            num_steps: Optional[int] = None) -> torch.Tensor:
+            num_steps: Optional[int] = None,
+            material_image_encode: bool = False) -> torch.Tensor:
         """`mask2image_3mod_albedo` with its noise given: `enc_noise`
         (6 * B, h, w, 4) for the posterior samples of the maps stacked in
-        the order normal, albedo, spec_light, diff_light, env, mask, and
-        `img_noise` (B, h, w, 4).  The material group is the raw constant
-        latent [m, m, r, r] * 2 - 1, not VAE-encoded."""
+        the order normal, albedo, spec_light, diff_light, env, mask (then
+        material: 7 * B, with `material_image_encode`), and `img_noise`
+        (B, h, w, 4).  Without `material_image_encode` the material group
+        is the raw constant latent [m, m, r, r] * 2 - 1, not VAE-encoded."""
         num_steps = num_steps or self.cfg.sampler.num_steps
         given = dict(normal=normal, albedo=albedo, spec_light=spec_light,
                      diff_light=diff_light, env=env, mask=mask)
         maps = {n: self._tensor(given[n]) for n in _MAP_NAMES}
+        metallic = self._tensor(metallic)
+        roughness = self._tensor(roughness)
+        if material_image_encode:
+            mask01 = torch.clamp(maps["mask"] * 0.5 + 0.5, 0.0, 1.0)[..., :1]
+            m = metallic.reshape(-1, 1, 1, 1) * mask01
+            r = roughness.reshape(-1, 1, 1, 1) * mask01
+            maps["material"] = torch.cat([m, m, r], dim=-1) * 2.0 - 1.0
         lat = self._encode_maps(maps, self._tensor(enc_noise))
         shape = lat["normal"].shape
-        material = self.material_latent(self._tensor(metallic),
-                                        self._tensor(roughness), shape)
+        if material_image_encode:
+            material = lat["material"]
+        else:
+            material = self.material_latent(metallic, roughness, shape)
         groups = [material, lat["normal"], lat["albedo"], lat["spec_light"],
                   lat["diff_light"], lat["env"]]
         ctx = self.blank_context(shape[0])
@@ -238,13 +255,14 @@ class UniRendererPipeline:
         return self._vae_decode(img_lat)
 
 
-def kernel_cases(cfg: SystemConfig, batch: int, image_size: int):
+def kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
+                 material_image_encode: bool = False):
     """Every call signature the two kernels see in one
-    `mask2image_3mod_albedo` of `batch` requests at `image_size`, worked
-    out from the config: GroupNorm (x shape, groups, eps, silu) and
-    attention (q shape, k shape), in the form the wrappers record in
-    `.seen`.  Lets a check on the card cover exactly the main path's
-    shapes."""
+    `mask2image_3mod_albedo` of `batch` requests at `image_size` (with or
+    without `material_image_encode`), worked out from the config:
+    GroupNorm (x shape, groups, eps, silu) and attention (q shape, k
+    shape), in the form the wrappers record in `.seen`.  Lets a check on
+    the card cover exactly the main path's shapes."""
     u, vc = cfg.unet, cfg.vae
     gn, attn = set(), set()
     lat = image_size // vc.downscale
@@ -287,7 +305,7 @@ def kernel_cases(cfg: SystemConfig, batch: int, image_size: int):
             1e-5, True))
 
     # VAE encoder over the stacked maps, decoder over the batch
-    n = batch * len(_MAP_NAMES)
+    n = batch * (len(_MAP_NAMES) + int(material_image_encode))
     g = vc.norm_num_groups
     r, prev = image_size, vc.block_out_channels[0]
     for i, ch in enumerate(vc.block_out_channels):
