@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4,5,6,7] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4,5,6,7,8] [--profile]
 
-Phases, each printing its elapsed seconds as it goes:
+Phases, each printing its elapsed seconds as it goes (in the order 0-6,
+8, 7: phase 8 reuses phase 3's flagship weights, freed before phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
      and the -Xptxas -v report (registers, shared memory, spills)
   2  kernels against their plain PyTorch versions in bf16, at every call
-     signature the flagship forward path gives them (batch 2) plus a ragged
-     case each; time of kernel, plain version and one PyTorch library call
-     (F.group_norm + F.silu, F.scaled_dot_product_attention: timed here as
-     yardsticks, never called by the port), and each case's bound
+     signature the flagship forward path (batch 2) and the flagship inverse
+     path (batch 2 x ensemble 5) give them, plus a ragged case each; the
+     splash (K2s) and unet_flash (K3) routes at every tileable
+     self-attention shape of both paths, K3 also without the running max
+     (bounded logits) and unpipelined; time of kernel, plain version and
+     one PyTorch library call (F.group_norm + F.silu,
+     F.scaled_dot_product_attention: timed here as yardsticks, never called
+     by the port), and each case's bound
   3  the main path at flagship width: random bf16 weights made on the card
      from a seed, 2 requests (one batch of 2) through
      `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
      shape, finiteness, that both kernels ran and that every call they got
      was checked in phase 2
   4  the repo's trained small() weights through the flax converter onto the
-     card: one model evaluation against the same weights in f32 on the CPU
-     (plain versions); one forward render at batch 2 through the public
-     entry point; one on card and CPU from the same noise, compared
+     card, every key loaded (the attribute decoder's too): one forward and
+     one inverse model evaluation against the same weights in f32 on the
+     CPU (plain versions); one forward render at batch 2 through the public
+     entry point; one forward render and one inverse render (20 steps) on
+     card and CPU from the same noise, compared
   5  the rasterizer (K4) against its plain version on the card: the
      flagship collate's shape (2 views at 1024^2, deformed 90-ring spheres,
      T padded to 32768), the small() shape (128^2, T 8192), a depth-peel
@@ -32,16 +39,30 @@ Phases, each printing its elapsed seconds as it goes:
      `mask2image_3mod_albedo` (flagship width, random bf16 weights, 20
      steps, material_image_encode); collate cold/warm times, K4's share,
      launches of all three kernels on this path
-  7  the held-out forward PSNR: the seed-99 held-out set (32 meshes, 8
-     envs) generated on the card, the trained small() weights in bf16,
-     `eval.quality.forward_psnr` over 32 objects, 20 steps; fails more
-     than 1 dB below QUALITY_r05_fixed.json's 25.17 dB
+  7  the held-out harness: the seed-99 held-out set (32 meshes, 8 envs)
+     generated on the card, the trained small() weights and the JAX
+     harness's text encoder in bf16, 32 objects, 20 steps; the forward
+     PSNR (`eval.quality.forward_psnr`) fails more than 1 dB below
+     QUALITY_r05_fixed.json's 25.17 dB; the inverse leg
+     (`eval.quality.inverse_scores`) at ensemble 1 and 5 fails more than
+     1 dB below QUALITY_r05_fixed(_ens5).json's normal and albedo PSNR,
+     more than 3 degrees above its mean normal angle or more than 0.05
+     above its metallic/roughness MAE
+  8  the flagship inverse request: random bf16 flagship weights (phase 3's),
+     2 photos x ensemble 5 through `real_image2mask_3mod_albedo`, 20
+     steps; cold and warm wall, peak memory, launches; every output finite
+     and of its shape, every kernel call checked in phase 2; then one warm
+     forward request under UNIRENDER_ATTN=splash and one under
+     =unet_flash: the route's launches equal the tileable self-attention
+     calls worked out from the config, and the image is within 0.05 *
+     max|ref| (phase 4's bf16 model rule) of the default route's
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
 a line {"kernels": [...]}.  --out DIR also writes every measured case to
-DIR/chip_smoke.json; --profile adds a torch.profiler breakdown of one
-flagship request by kernel class.
+DIR/chip_smoke.json; --profile adds a torch.profiler breakdown by kernel
+class of one flagship forward request (phase 3) and one flagship inverse
+request (phase 8).
 """
 
 from __future__ import annotations
@@ -61,14 +82,25 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 CARD_REL = 2.0 ** -7             # bf16 output rounding, relative to max|ref|
 SMALL_MODEL_REL = 0.05           # bf16 small() model vs f32, rel. to max|ref|
 SMALL_RENDER_MEAN_ABS = 0.1      # bf16 vs f32 forward render, mean |diff|
+INVERSE_ENSEMBLE = 5             # the flagship recipe (SamplerConfig)
 FP32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
 RAST_TILE = 16                   # csrc/rasterize.cu's tile side
 RAST_TEST_FLOPS = 12             # 3 edge functions, 2 mul + 2 add each
 DUAL_NPZ = "artifacts/r05/dual_small.npz"
 VAE_NPZ = "artifacts/r04/vae_small.npz"
 PSNR_REFERENCE = 25.167056013939117  # QUALITY_r05_fixed.json, n=32
-PSNR_MARGIN = 1.0                # dB below the reference that fails
-ALL_PHASES = "0,1,2,3,4,5,6,7"
+PSNR_MARGIN = 1.0                # dB below a reference that fails
+ANGLE_MARGIN = 3.0               # degrees above the reference that fail
+MR_MAE_MARGIN = 0.05             # above the reference metallic/rough MAE
+# the inverse leg of the JAX harness, n=32, 20 steps, by ensemble:
+# QUALITY_r05_fixed.json (1) and QUALITY_r05_fixed_ens5.json (5)
+INVERSE_REFERENCE = {
+    1: dict(normal=18.029916766059294, albedo=15.004557956342436,
+            angle=31.522995305241448, mr_mae=0.2856240663677454),
+    5: dict(normal=19.031464968418838, albedo=16.181585165493882,
+            angle=28.55341614233909, mr_mae=0.23219199385493994),
+}
+ALL_PHASES = "0,1,2,3,4,5,6,7,8"
 
 
 def log(msg: str) -> None:
@@ -163,50 +195,78 @@ def gn_case(torch, F, timer, gen, case):
                 three_pass_floor_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
 
 
-def attn_case(torch, F, timer, gen, case):
+def _attention_kernels():
+    """name -> (wrapper, plain version) of the three attention kernels."""
+    from unirenderer_tpu_torch.ops.attn_kernel import (
+        unet_flash_attention, unet_flash_reference,
+    )
     from unirenderer_tpu_torch.ops.flash_attention import (
         attention_reference, flash_attention,
     )
+    from unirenderer_tpu_torch.ops.splash_attention import (
+        splash_attention, splash_attention_reference,
+    )
+    return {"flash_attention": (flash_attention, attention_reference),
+            "splash_attention": (splash_attention,
+                                 splash_attention_reference),
+            "attn_kernel": (unet_flash_attention, unet_flash_reference)}
+
+
+def attn_case(torch, F, timer, gen, case, kernel="flash_attention",
+              **options):
+    """One attention kernel (K2, K2s or K3 with `options`) at (q shape, k
+    shape): error against its plain version on the same bf16 inputs (its
+    pre-scale of Q rounded as the kernel's caller rounds it) with an f32
+    output, and the times."""
+    fn, reference = _attention_kernels()[kernel]
+    ref_options = {k: v for k, v in options.items() if k == "running_max"}
     qs, ks = case
     q = torch.randn(qs, generator=gen, device="cuda").bfloat16()
     k = torch.randn(ks, generator=gen, device="cuda").bfloat16()
     v = torch.randn(ks, generator=gen, device="cuda").bfloat16()
-    o = flash_attention(q, k, v)
-    ref = attention_reference(q.float(), k.float(), v.float())
+    o = fn(q, k, v, **options)
+    ref = reference(q, k, v, out_dtype=torch.float32, **ref_options)
     torch.cuda.synchronize()
     err = (o.float() - ref).abs().max().item()
     tol = CARD_REL * ref.abs().max().item()
     del ref, o
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = timer(lambda: flash_attention(q, k, v))
-    plain_ms = timer(lambda: attention_reference(q, k, v))
+    ms = timer(lambda: fn(q, k, v, **options))
+    plain_ms = timer(lambda: reference(q, k, v, **ref_options))
     library_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     b, sq, h, d = qs
     sk = ks[1]
     flop_ms = 4.0 * b * h * sq * sk * d / BF16_FLOPS * 1e3
     byte_ms = 2.0 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S * 1e3
-    return dict(kernel="flash_attention", shape=[list(qs), list(ks)],
+    return dict(kernel=kernel, shape=[list(qs), list(ks)], options=options,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(flop_ms, byte_ms),
                 bound_by="operations" if flop_ms >= byte_ms else "bytes")
 
 
-def phase_kernels(torch, F, timer, gn_cases, attn_cases):
+def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases):
+    """`route_cases`: (kernel name, case, options) of the two routes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    jobs = ([lambda c=c: gn_case(torch, F, timer, gen, c) for c in gn_cases]
+            + [lambda c=c: attn_case(torch, F, timer, gen, c)
+               for c in attn_cases]
+            + [lambda n=n, c=c, o=o: attn_case(torch, F, timer, gen, c, n,
+                                               **o)
+               for n, c, o in route_cases])
     results = []
-    for fn, cases in ((gn_case, gn_cases), (attn_case, attn_cases)):
-        for case in cases:
-            r = fn(torch, F, timer, gen, case)
-            results.append(r)
-            ok = r["max_abs_err"] <= r["tol"]
-            log(f"  {r['kernel']:15s} {json.dumps(r['shape'])} "
-                + (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])} "
-                   if "groups" in r else "")
-                + f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
-                f"{'ok' if ok else 'FAIL'}  kernel {r['ms']:.4f} ms  "
-                f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
-                f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
-            torch.cuda.empty_cache()
+    for job in jobs:
+        r = job()
+        results.append(r)
+        ok = r["max_abs_err"] <= r["tol"]
+        log(f"  {r['kernel']:16s} {json.dumps(r['shape'])} "
+            + (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])} "
+               if "groups" in r else "")
+            + (f"{r['options']} " if r.get("options") else "")
+            + f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
+            f"{'ok' if ok else 'FAIL'}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        torch.cuda.empty_cache()
     bad = [r for r in results if not r["max_abs_err"] <= r["tol"]]
     check(not bad, f"{len(bad)} kernel case(s) out of tolerance")
     return results
@@ -239,11 +299,11 @@ def synthetic_request(torch, F, gen, batch, res):
 
 
 def _wrappers():
-    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
     from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
     from unirenderer_tpu_torch.ops.rasterize import rasterize
-    return {"groupnorm_silu": fused_groupnorm_silu,
-            "flash_attention": flash_attention, "rasterize": rasterize}
+    out = {"groupnorm_silu": fused_groupnorm_silu, "rasterize": rasterize}
+    out.update((k, fn) for k, (fn, _) in _attention_kernels().items())
+    return out
 
 
 def reset_counters():
@@ -313,7 +373,8 @@ def phase_main_path(torch, F, cfg, pipe, n_params, checked, profile):
                   warm_wall_s=warm, peak_bytes=peak, launches=launches,
                   params=n_params)
     if profile:
-        result["profile"] = profile_request(torch, pipe, req, gen)
+        result["profile"] = profile_request(
+            torch, lambda: pipe.mask2image_3mod_albedo(**req, generator=gen))
     torch.cuda.empty_cache()
     return result
 
@@ -322,6 +383,8 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
     ("K1 groupnorm_silu", ("gn_stats_kernel", "gn_finalize_kernel",
                            "gn_apply_kernel")),
     ("K2 flash_attention", ("flash_fwd_kernel",)),
+    ("K2s splash_attention", ("splash_fwd_kernel",)),
+    ("K3 attn_kernel", ("unet_flash_kernel",)),
     ("convolution", ("fprop", "convolve", "implicit_gemm", "winograd")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
     ("normalisation (LayerNorm)", ("layer_norm",)),
@@ -329,7 +392,7 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
 )
 
 
-def profile_request(torch, pipe, req, gen):
+def profile_request(torch, request):
     """Device time by kernel class over one full request (torch.profiler,
     device kernels only), against the wall of the profiled call."""
     from torch.autograd import DeviceType
@@ -338,7 +401,7 @@ def profile_request(torch, pipe, req, gen):
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.mask2image_3mod_albedo(**req, generator=gen)
+        request()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
@@ -371,26 +434,39 @@ def profile_request(torch, pipe, req, gen):
 # ---------------------------------------------------------------------------
 
 
+def small_inverse_request(torch, F, gen, batch, res):
+    """A photo-like image (smooth fields) and the disc mask of
+    `synthetic_request`, both on the card in [-1, 1]."""
+    req = synthetic_request(torch, F, gen, batch, res)
+    return dict(image=req["albedo"], mask=req["mask"])
+
+
 def phase_small_weights(torch, F):
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.core.checkpoint import load_params_npz
+    from unirenderer_tpu_torch.eval.quality import TEXT_NPZ
     from unirenderer_tpu_torch.pipelines import UniRendererPipeline
     cfg = config.small()
     dual_flat, step = load_params_npz(DUAL_NPZ)
     vae_flat, _ = load_params_npz(VAE_NPZ)
+    text_flat, _ = load_params_npz(TEXT_NPZ)
+    n_keys = len(dual_flat) + len(vae_flat) + len(text_flat)
     card = UniRendererPipeline.create(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
         dtype=torch.bfloat16)
-    skipped = card.load_flax(dual=dual_flat, vae=vae_flat)
+    loaded = card.load_flax(dual=dual_flat, vae=vae_flat, text=text_flat)
     host = UniRendererPipeline.create(
         cfg, torch.Generator().manual_seed(SEED), device="cpu",
         dtype=torch.float32)
-    host.load_flax(dual=dual_flat, vae=vae_flat)
-    host.text.load_state_dict(card.text.state_dict())   # same random CLIP
-    log(f"  loaded {DUAL_NPZ} (step {step}; {skipped} attribute-decoder keys "
-        f"skipped) and {VAE_NPZ}")
+    host.load_flax(dual=dual_flat, vae=vae_flat, text=text_flat)
+    n_dec = sum("/controldec/" in k for k in dual_flat)
+    log(f"  loaded {DUAL_NPZ} (step {step}; {len(dual_flat)} keys, "
+        f"{n_dec} of them the attribute decoder's), {VAE_NPZ} and "
+        f"{TEXT_NPZ}: {loaded} of {n_keys} keys, {n_keys - loaded} skipped")
+    check(loaded == n_keys, "the converter skipped keys")
 
-    # one model evaluation, card bf16 against host f32 plain versions
+    # one forward and one inverse model evaluation, card bf16 against host
+    # f32 plain versions
     g = torch.Generator().manual_seed(SEED)
     u, s, b = cfg.unet, cfg.unet.sample_size, 2
     img = torch.randn((b, s, s, u.in_channels), generator=g)
@@ -398,7 +474,7 @@ def phase_small_weights(torch, F):
     ctx = torch.randn((b, cfg.text.max_length, u.cross_attention_dim),
                       generator=g)
     t_img = torch.tensor([999, 400])
-    preds = []
+    preds, attr_preds = [], []
     for pipe in (card, host):
         dev = pipe.device
         with torch.no_grad():
@@ -407,11 +483,21 @@ def phase_small_weights(torch, F):
                 ctx.to(dev))
             preds.append(pipe.dual.image_stream_with_residuals(
                 img.to(dev), t_img.to(dev), ctx.to(dev), down, mid).cpu())
-    err = (preds[0] - preds[1]).abs().max().item()
-    tol = SMALL_MODEL_REL * preds[1].abs().max().item()
-    log(f"  small() model eval, card bf16 vs CPU f32: max|diff| {err:.4g} "
-        f"tol {tol:.4g}")
-    check(err <= tol, "small() model on the card disagrees with the CPU")
+            down, mid = pipe.dual.unet_raw_taps(
+                img.to(dev), torch.zeros(b, dtype=torch.long, device=dev),
+                ctx.to(dev))
+            attr_preds.append(pipe.dual.attr_streams_with_unet_taps(
+                attr.to(dev), t_img.to(dev), ctx.to(dev), down, mid).cpu())
+    result = dict(loaded_keys=loaded, file_keys=n_keys)
+    for what, (got, want) in (("forward", preds), ("inverse", attr_preds)):
+        err = (got - want).abs().max().item()
+        tol = SMALL_MODEL_REL * want.abs().max().item()
+        log(f"  small() {what} model eval, card bf16 vs CPU f32: max|diff| "
+            f"{err:.4g} tol {tol:.4g}")
+        check(err <= tol, f"small() {what} model on the card disagrees "
+              f"with the CPU")
+        result[f"{what}_model_max_abs_err"] = err
+        result[f"{what}_model_tol"] = tol
 
     # forward renders at batch 2: one through the public entry point (noise
     # from a generator on the card), then card and CPU on the same noise
@@ -438,9 +524,32 @@ def phase_small_weights(torch, F):
         f"{psnr:.2f} dB")
     check(mean_abs <= SMALL_RENDER_MEAN_ABS,
           "small() render on the card disagrees with the CPU")
-    return dict(model_max_abs_err=err, model_tol=tol,
-                render_mean_abs_diff=mean_abs, render_psnr_db=psnr,
-                skipped_decoder_keys=skipped)
+    result.update(render_mean_abs_diff=mean_abs, render_psnr_db=psnr)
+
+    # the inverse path at batch 2 (small()'s ensemble, 1), card and CPU on
+    # the same noise: every output within 0.05 * max|ref| of f32
+    inv = small_inverse_request(torch, F, gen, b, res)
+    inv = {k: v.cpu() for k, v in inv.items()}
+    enc_noise = torch.randn((2 * b, lat, lat, 4), generator=g)
+    attr_noise = torch.randn((6, b, lat, lat, 4), generator=g)
+    outs = [pipe.real_image2mask_3mod_albedo_with_noise(
+        **inv, enc_noise=enc_noise, attr_noise=attr_noise)
+        for pipe in (card, host)]
+    worst = {}
+    for k, want in outs[1].items():
+        got = outs[0][k].cpu()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"small() inverse output {k}")
+        worst[k] = (got - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-12)
+    log(f"  small() inverse render (20 steps), card bf16 vs CPU f32, "
+        f"max|diff| / max|ref| per output: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f" (limit {SMALL_MODEL_REL})")
+    check(max(worst.values()) <= SMALL_MODEL_REL,
+          "small() inverse render on the card disagrees with the CPU")
+    result["inverse_rel_err"] = worst
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -691,8 +800,9 @@ def phase_render_chain(torch, cfg, pipe, checked, rast_checked):
           f"mask coverage {coverage}")
     check(tuple(out.shape) == (2, res, res, 3), "render chain output shape")
     check(bool(torch.isfinite(out).all()), "render chain output not finite")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the render chain")
+    for name in ("groupnorm_silu", "flash_attention", "rasterize"):
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the render chain")
     for name in ("groupnorm_silu", "flash_attention"):
         missed = seen[name] - checked[name]
         check(not missed, f"{name} got calls phase 2 did not check: "
@@ -739,23 +849,146 @@ def phase_render_chain(torch, cfg, pipe, checked, rast_checked):
 # ---------------------------------------------------------------------------
 
 
-def phase_held_out(torch):
+def phase_held_out(torch, ensembles=(1, 5)):
     from unirenderer_tpu_torch.eval.quality import (
-        held_out_psnr, small_trained_pipeline,
+        held_out_scores, small_trained_pipeline,
     )
     t = time.perf_counter()
     pipe = small_trained_pipeline("cuda", torch.bfloat16)
-    r = held_out_psnr(pipe, n=32, num_steps=20, noise_seeds=(1000,),
-                      log=lambda msg: log(f"  {msg}"))
-    value = r["psnr_forward_render"]
-    log(f"  held-out forward PSNR {value:.3f} dB (n=32, 20 steps, bf16 on "
-        f"the card) beside QUALITY_r05_fixed's {PSNR_REFERENCE:.2f} dB; "
-        f"set generated in {r['generate_seconds']:.1f} s, phase "
-        f"{time.perf_counter() - t:.1f} s")
-    check(value >= PSNR_REFERENCE - PSNR_MARGIN,
-          f"held-out forward PSNR {value:.3f} dB is more than "
-          f"{PSNR_MARGIN} dB below {PSNR_REFERENCE:.2f}")
-    return r
+    out = {}
+    for e in ensembles:
+        r = held_out_scores(pipe, n=32, num_steps=20, noise_seeds=(1000,),
+                            inverse=True, ensemble=e,
+                            log=lambda msg: log(f"  {msg}"))
+        out[f"ensemble_{e}"] = r
+        value, inv, ref = (r["psnr_forward_render"], r["inverse"],
+                           INVERSE_REFERENCE[e])
+        log(f"  held-out forward PSNR {value:.3f} dB (n=32, 20 steps, bf16 "
+            f"on the card) beside QUALITY_r05_fixed's {PSNR_REFERENCE:.2f} "
+            f"dB; set generated in {r['generate_seconds']:.1f} s")
+        log(f"  held-out inverse, ensemble {e}: PSNR normal "
+            f"{inv['psnr_maps']['normal']:.3f} (reference {ref['normal']:.2f})"
+            f", albedo {inv['psnr_maps']['albedo']:.3f} ({ref['albedo']:.2f})"
+            f", spec {inv['psnr_maps']['spec_light']:.3f}, diff "
+            f"{inv['psnr_maps']['diff_light']:.3f} dB; normal angle mean "
+            f"{inv['normal_angle_mean']:.2f} deg ({ref['angle']:.2f}); MR "
+            f"MAE {inv['metal_rough_mae']:.4f} ({ref['mr_mae']:.3f})")
+        check(value >= PSNR_REFERENCE - PSNR_MARGIN,
+              f"held-out forward PSNR {value:.3f} dB is more than "
+              f"{PSNR_MARGIN} dB below {PSNR_REFERENCE:.2f}")
+        for k in ("normal", "albedo"):
+            check(inv["psnr_maps"][k] >= ref[k] - PSNR_MARGIN,
+                  f"held-out inverse {k} PSNR {inv['psnr_maps'][k]:.3f} dB "
+                  f"(ensemble {e}) is more than {PSNR_MARGIN} dB below "
+                  f"{ref[k]:.2f}")
+        check(inv["normal_angle_mean"] <= ref["angle"] + ANGLE_MARGIN,
+              f"held-out mean normal angle {inv['normal_angle_mean']:.2f} "
+              f"(ensemble {e}) is more than {ANGLE_MARGIN} deg above "
+              f"{ref['angle']:.2f}")
+        check(inv["metal_rough_mae"] <= ref["mr_mae"] + MR_MAE_MARGIN,
+              f"held-out MR MAE {inv['metal_rough_mae']:.4f} (ensemble {e}) "
+              f"is more than {MR_MAE_MARGIN} above {ref['mr_mae']:.3f}")
+    log(f"  phase {time.perf_counter() - t:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the flagship inverse request and the attention routes
+# ---------------------------------------------------------------------------
+
+
+def phase_inverse(torch, F, cfg, pipe, checked, profile):
+    from unirenderer_tpu_torch.pipelines import forward_self_attention_calls
+    batch, res, e = 2, cfg.vae.sample_size, INVERSE_ENSEMBLE
+    steps = cfg.sampler.num_steps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    req = small_inverse_request(torch, F, gen, batch, res)
+
+    walls = []
+    for i in range(2):
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.real_image2mask_3mod_albedo(**req, generator=gen,
+                                               ensemble=e)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            launches, seen = read_counters()
+            peak = torch.cuda.max_memory_allocated()
+    lat = res // cfg.vae.downscale
+    shapes = dict(normal=(batch, res, res, 3), albedo=(batch, res, res, 3),
+                  spec_light=(batch, res, res, 3),
+                  diff_light=(batch, res, res, 3), env=(batch, res, res, 3),
+                  metallic=(batch, res, res), roughness=(batch, res, res),
+                  material_latents=(batch, lat, lat, 4))
+    check(set(out) == set(shapes), f"inverse outputs {sorted(out)}")
+    for k, shape in shapes.items():
+        check(tuple(out[k].shape) == shape,
+              f"inverse {k} has shape {tuple(out[k].shape)}")
+        check(bool(torch.isfinite(out[k]).all()), f"inverse {k} not finite")
+    for name in ("groupnorm_silu", "flash_attention"):
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the inverse path")
+        missed = seen[name] - checked[name]
+        check(not missed, f"{name} got calls phase 2 did not check: "
+              f"{sorted(missed)[:3]}")
+    log(f"  {batch} photos x ensemble {e} x {steps} steps at {res}^2: wall "
+        f"{walls[0]:.3f} s cold, {walls[1]:.3f} s warm, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches {launches}")
+    result = dict(batch=batch, ensemble=e, steps=steps, wall_s=walls[0],
+                  warm_wall_s=walls[1], peak_bytes=peak, launches=launches)
+    if profile:
+        result["profile"] = profile_request(
+            torch, lambda: pipe.real_image2mask_3mod_albedo(
+                **req, generator=gen, ensemble=e))
+
+    # one warm forward request per attention route
+    fwd = synthetic_request(torch, F, torch.Generator(
+        device="cuda").manual_seed(SEED), batch, res)
+    expected = forward_self_attention_calls(cfg, batch, res, steps)
+    images = {}
+    for route, name in (("auto", "flash_attention"),
+                        ("splash", "splash_attention"),
+                        ("unet_flash", "attn_kernel")):
+        os.environ["UNIRENDER_ATTN"] = route
+        try:
+            reset_counters()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            images[route] = pipe.mask2image_3mod_albedo(
+                **fwd, generator=torch.Generator(device="cuda").manual_seed(
+                    SEED))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            del os.environ["UNIRENDER_ATTN"]
+        launches, seen = read_counters()
+        log(f"  forward request under UNIRENDER_ATTN={route}: wall "
+            f"{wall:.3f} s, launches {launches}")
+        result[f"route_{route}"] = dict(wall_s=wall, launches=launches)
+        if route == "auto":
+            continue
+        check(launches[name] == expected,
+              f"UNIRENDER_ATTN={route}: {launches[name]} {name} launches, "
+              f"{expected} tileable self-attention calls in the code")
+        missed = seen[name] - checked[name]
+        check(not missed, f"{name} got calls phase 2 did not check: "
+              f"{sorted(missed)[:3]}")
+        ref = images["auto"]
+        err = (images[route] - ref).abs().max().item()
+        tol = SMALL_MODEL_REL * ref.abs().max().item()
+        mean = (images[route] - ref).abs().mean().item()
+        log(f"    image against the default route's: max|diff| {err:.4g} "
+            f"(tol {tol:.4g}), mean |diff| {mean:.4g}, bf16 rule 2^-7 * "
+            f"max|ref| = {CARD_REL * ref.abs().max().item():.4g}")
+        check(bool(torch.isfinite(images[route]).all()) and err <= tol,
+              f"UNIRENDER_ATTN={route} image disagrees with the default")
+        result[f"route_{route}"].update(max_abs_diff=err, tol=tol,
+                                        mean_abs_diff=mean)
+    result["route_expected_launches"] = expected
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +1006,18 @@ KERNELS = {
         replaces="unirenderer_tpu/ops/flash_attention.py:68",
         # the 64^2 self-attention: most of the path's attention work
         headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "splash_attention": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/splash_attention.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:99",
+        # the 64^2 self-attention, under UNIRENDER_ATTN=splash
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "attn_kernel": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/attn_kernel.cu",
+        replaces="unirenderer_tpu/ops/attn_kernel.py:48",
+        # the 64^2 self-attention, under UNIRENDER_ATTN=unet_flash, with the
+        # route's options (running max, pipelined)
+        headline=lambda r: (r["shape"] == [[2, 4096, 8, 40]] * 2
+                            and r["options"] == {})),
     "rasterize": dict(
         route="cuda", source="unirenderer_tpu_torch/csrc/rasterize.cu",
         replaces="unirenderer_tpu/ops/rasterize_pallas.py:134",
@@ -816,7 +1061,10 @@ def main(argv=None) -> int:
     try:
         from unirenderer_tpu_torch.core import config
         from unirenderer_tpu_torch.ops import _build
-        from unirenderer_tpu_torch.pipelines import kernel_cases
+        from unirenderer_tpu_torch.ops.flash_attention import tileable
+        from unirenderer_tpu_torch.pipelines import (
+            inverse_kernel_cases, kernel_cases,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr, flush=True)
@@ -825,13 +1073,13 @@ def main(argv=None) -> int:
     record = {}
     try:
         # ---- 0: device
-        name = torch.cuda.get_device_name(0)
+        kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
         smi = nvidia_smi()
-        log(f"phase 0 device: {name} x{count}, torch {torch.__version__}, "
+        log(f"phase 0 device: {kind} x{count}, torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
         print(f"nvidia-smi: {smi}", flush=True)
-        record["device"] = dict(name=name, count=count, nvidia_smi=smi,
+        record["device"] = dict(name=kind, count=count, nvidia_smi=smi,
                                 torch=torch.__version__,
                                 cuda=torch.version.cuda)
         # ---- 1: build
@@ -850,12 +1098,28 @@ def main(argv=None) -> int:
 
         cfg = config.flagship()
         gn_cases, attn_cases = set(), set()
-        for encode in (False, True):        # phase 3, phase 6
-            gn, attn = kernel_cases(cfg, 2, cfg.vae.sample_size, encode)
+        res = cfg.vae.sample_size
+        for gn, attn in (kernel_cases(cfg, 2, res, False),       # phase 3
+                         kernel_cases(cfg, 2, res, True),        # phase 6
+                         inverse_kernel_cases(cfg, 2, res,       # phase 8
+                                              INVERSE_ENSEMBLE)):
             gn_cases |= gn
             attn_cases |= attn
+        routed = sorted((q, k) for q, k in attn_cases
+                        if q == k and tileable(q[1], k[1], q[3]))
+        # the two routes at every tileable self-attention shape; K3 also
+        # without the running max (randn inputs: the scaled logits stay
+        # far below exp2's range) and unpipelined, at the forward shapes
+        route_cases = ([("splash_attention", c, {}) for c in routed]
+                       + [("attn_kernel", c, {}) for c in routed]
+                       + [("attn_kernel", c, {"running_max": False})
+                          for c in routed]
+                       + [("attn_kernel", c, {"pipelined": False})
+                          for c in routed if c[0][0] == 2])
         checked = {"groupnorm_silu": set(gn_cases),
-                   "flash_attention": set(attn_cases)}
+                   "flash_attention": set(attn_cases),
+                   "splash_attention": set(routed),
+                   "attn_kernel": set(routed)}
         # ---- 2: kernels against their plain versions
         results = []
         if 2 in phases:
@@ -866,7 +1130,7 @@ def main(argv=None) -> int:
             log(f"phase 2 kernels vs plain versions, bf16, tolerance "
                 f"2^-7 * max|ref| (TF32 off for the plain versions): "
                 f"{len(gn_cases)} GroupNorm + {len(attn_cases)} attention "
-                f"main-path cases + ragged")
+                f"main-path cases + ragged, {len(route_cases)} route cases")
             ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                          ((1, 33, 31, 1920), 32, 1e-6, False)]
             ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -874,7 +1138,7 @@ def main(argv=None) -> int:
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, sorted(gn_cases) + ragged_gn,
-                sorted(attn_cases) + ragged_attn)
+                sorted(attn_cases) + ragged_attn, route_cases)
             del timer
             torch.cuda.empty_cache()
             (torch.backends.cuda.matmul.allow_tf32,
@@ -883,7 +1147,7 @@ def main(argv=None) -> int:
             log("phase 2 done")
         launches = {}
         pipe = None
-        if phases & {3, 6}:
+        if phases & {3, 6, 8}:
             pipe, n_params = flagship_pipeline(torch, cfg)
         # ---- 3: main path
         if 3 in phases:
@@ -918,12 +1182,26 @@ def main(argv=None) -> int:
             launches["rasterize"] = chain["launches"]["rasterize"]
             record["render_chain"] = chain
             log("phase 6 done")
+        # ---- 8: the flagship inverse request, the attention routes
+        if 8 in phases:
+            log("phase 8 flagship inverse request: 2 photos x ensemble "
+                f"{INVERSE_ENSEMBLE}, {cfg.sampler.num_steps} steps; one "
+                "forward request per attention route")
+            inverse = phase_inverse(torch, F, cfg, pipe, checked,
+                                    args.profile)
+            for route, kernel in (("splash", "splash_attention"),
+                                  ("unet_flash", "attn_kernel")):
+                launches[kernel] = inverse[f"route_{route}"]["launches"][
+                    kernel]
+            record["inverse"] = inverse
+            log("phase 8 done")
         del pipe
         torch.cuda.empty_cache()
-        # ---- 7: held-out forward PSNR
+        # ---- 7: the held-out harness
         if 7 in phases:
-            log("phase 7 held-out forward PSNR: trained small() weights")
-            record["held_out_psnr"] = phase_held_out(torch)
+            log("phase 7 held-out harness: trained small() weights, forward "
+                "and inverse legs")
+            record["held_out"] = phase_held_out(torch)
             log("phase 7 done")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
@@ -941,7 +1219,7 @@ def main(argv=None) -> int:
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
     print(json.dumps(kernels_line(results, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0
 
 

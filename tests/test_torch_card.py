@@ -24,6 +24,9 @@ import torch
 
 from unirenderer_tpu_torch.core import config
 from unirenderer_tpu_torch.ops import _build
+from unirenderer_tpu_torch.ops.attn_kernel import (
+    unet_flash_attention, unet_flash_reference,
+)
 from unirenderer_tpu_torch.ops.flash_attention import (
     attention_reference, flash_attention,
 )
@@ -32,6 +35,9 @@ from unirenderer_tpu_torch.ops.groupnorm import (
 )
 from unirenderer_tpu_torch.ops.rasterize import (
     match_stats, rasterize, rasterize_reference, within_rule,
+)
+from unirenderer_tpu_torch.ops.splash_attention import (
+    splash_attention, splash_attention_reference,
 )
 from unirenderer_tpu_torch.pipelines import UniRendererPipeline
 
@@ -53,7 +59,7 @@ def _close(got, want, what):
     assert err <= tol, f"{what}: max|diff| {err:.3g} > {tol:.3g}"
 
 
-def test_build_produces_both_libraries(card):
+def test_build_produces_every_library(card):
     built = _build.build()
     assert set(built) == set(_build.SOURCES)
     for b in built.values():
@@ -122,6 +128,56 @@ def test_flash_attention_kernel_refuses_head_dim_over_160(card):
     q = torch.zeros((1, 16, 1, 192), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+def _qkv(card, b, sq, sk, h, d, seed, scale=1.0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple((scale * torch.randn((b, n, h, d), generator=g,
+                                      device=card)).bfloat16()
+                 for n in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 4096, 8, 40), (2, 256, 4, 128)])
+def test_splash_attention_kernel(card, b, s, h, d):
+    q, k, v = _qkv(card, b, s, s, h, d, seed=3)
+    n = splash_attention.launches
+    got = splash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert splash_attention.launches == n + 1
+    _close(got, splash_attention_reference(q, k, v, torch.float32),
+           "splash attention")
+
+
+def test_splash_attention_refuses_untileable_shapes(card):
+    q = torch.zeros((1, 77, 2, 40), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):
+        splash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("running_max", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 8, 80),
+                                         (1, 200, 77, 3, 24)])
+def test_unet_flash_kernel(card, b, sq, sk, h, d, pipelined, running_max):
+    # bounded logits (|q.k|/sqrt(d) well under 26) for running_max=False
+    q, k, v = _qkv(card, b, sq, sk, h, d, seed=4,
+                   scale=1.0 if running_max else 0.5)
+    n = unet_flash_attention.launches
+    got = unet_flash_attention(q, k, v, pipelined=pipelined,
+                               running_max=running_max)
+    torch.cuda.synchronize()
+    assert unet_flash_attention.launches == n + 1
+    _close(got, unet_flash_reference(q, k, v, running_max, torch.float32),
+           "unet_flash")
+
+
+def test_unet_flash_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 1536, 2, 40), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="not divisible"):
+        unet_flash_attention(q, q, q)
+    q = torch.zeros((1, 256, 1, 160), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):
+        unet_flash_attention(q, q, q)
 
 
 def test_tiny_pipeline_on_card_runs_both_kernels(card):
@@ -225,3 +281,37 @@ def test_collate_render_on_card_matches_cpu(card, tmp_path):
         assert g.shape == w.shape and torch.isfinite(g).all(), k
         close = ((g - w).abs() <= 1e-3).float().mean().item()
         assert close >= 0.99, (k, close)
+
+
+def _tiny_inverse_request(cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    res = cfg.vae.sample_size
+    image = rng.uniform(-1, 1, (b, res, res, 3)).astype(np.float32)
+    mask = np.where(rng.uniform(size=(b, res, res, 1)) > 0.3, 1.0, -1.0)
+    return image, np.repeat(mask, 3, -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("route", ["auto", "splash", "unet_flash"])
+def test_tiny_inverse_on_card(card, route, monkeypatch):
+    """Inverse rendering at tiny(16) (a 16^2 latent: the 256-token
+    self-attention is tileable) under each attention route: finite maps of
+    the right shapes, and the route's kernel launched."""
+    monkeypatch.setenv("UNIRENDER_ATTN", route)
+    cfg = config.tiny(16)
+    gen = torch.Generator(device=card).manual_seed(0)
+    pipe = UniRendererPipeline.create(cfg, gen, device=card)
+    image, mask = _tiny_inverse_request(cfg, 2, seed=1)
+    counters = {"auto": flash_attention, "splash": splash_attention,
+                "unet_flash": unet_flash_attention}
+    n = counters[route].launches
+    out = pipe.real_image2mask_3mod_albedo(image=image, mask=mask,
+                                           generator=gen, ensemble=2)
+    torch.cuda.synchronize()
+    res = cfg.vae.sample_size
+    for key in ("normal", "albedo", "spec_light", "diff_light", "env"):
+        assert out[key].shape == (2, res, res, 3), key
+        assert torch.isfinite(out[key]).all(), key
+    for key in ("metallic", "roughness"):
+        assert out[key].shape == (2, res, res), key
+        assert torch.isfinite(out[key]).all(), key
+    assert counters[route].launches > n

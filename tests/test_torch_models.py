@@ -192,8 +192,10 @@ def _dual_stream(seed=12):
                          jnp.asarray(t_attr), jnp.asarray(ctx))
     params = random_params(shapes, seed)
     tm = tdual.DualStreamModel(TT.unet)
-    skipped = load_flax(tm, flatten(params["params"]))
-    assert skipped > 0          # the attribute decoder waits for slice 2
+    flat = flatten(params["params"])
+    assert any(k.startswith("controldec/") for k in flat)
+    # strict: every key is loaded, the attribute decoder's included
+    assert load_flax(tm, flat) == len(flat)
     jdown, jmid = jm.apply(params, jnp.asarray(attr), jnp.asarray(t_attr),
                            jnp.asarray(ctx), method="encode_attr")
     jpred = jm.apply(params, jnp.asarray(img), jnp.asarray(t_img),

@@ -15,19 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_helpers import (
-    assert_rel_close, flatten, flax_shapes, random_params,
-)
+from tests.torch_port_helpers import assert_rel_close, tiny_pipelines
 from unirenderer_tpu.core import config as jcfg
 from unirenderer_tpu.core.checkpoint import load_params_npz as jax_load_npz
-from unirenderer_tpu.models.clip_text import CLIPTextEncoder, blank_ids
 from unirenderer_tpu.models.dual_stream import DualStreamModel
-from unirenderer_tpu.models.vae import AutoencoderKL
-from unirenderer_tpu.pipelines import UniRendererPipeline as JaxPipeline
 from unirenderer_tpu_torch.core import config as tcfg
 from unirenderer_tpu_torch.core.checkpoint import load_params_npz
 from unirenderer_tpu_torch.core.convert import (
-    count_skipped, load_flax, state_dict_from_flax,
+    load_flax, state_dict_from_flax,
 )
 from unirenderer_tpu_torch.models.dual_stream import (
     DualStreamModel as TorchDual,
@@ -46,31 +41,9 @@ MAPS = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
 
 @pytest.fixture(scope="module")
 def pipes():
-    """One JAX tiny pipeline with seeded random weights (built from
-    `jax.eval_shape` of the inits: no flax init runs) and the port loaded
-    with the same weights."""
-    cfg = jcfg.tiny()
-    u, s = cfg.unet, cfg.unet.sample_size
-    dual = DualStreamModel(u, jnp.float32)
-    dual_p = random_params(flax_shapes(
-        dual, jnp.zeros((1, s, s, 4)), jnp.zeros((1, s, s, u.attr_channels)),
-        jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
-        jnp.zeros((1, cfg.text.max_length, u.cross_attention_dim))), 1)
-    vae = AutoencoderKL(cfg.vae, jnp.float32)
-    vs = cfg.vae.sample_size
-    vae_p = random_params(flax_shapes(
-        vae, jnp.zeros((1, vs, vs, 3)), jax.random.key(0)), 2)
-    text = CLIPTextEncoder(cfg.text, jnp.float32)
-    text_p = random_params(flax_shapes(text, blank_ids(cfg.text)), 3)
-    jpipe = JaxPipeline(cfg, dual, dual_p, vae, vae_p, text, text_p)
-
-    tpipe = UniRendererPipeline.create(
-        tcfg.tiny(), torch.Generator().manual_seed(0), device="cpu",
-        dtype=torch.float32)
-    tpipe.load_flax(dual=flatten(dual_p["params"]),
-                    vae=flatten(vae_p["params"]),
-                    text=flatten(text_p["params"]))
-    return jpipe, tpipe
+    """One JAX tiny pipeline with seeded random weights and the port loaded
+    with the same weights (`tiny_pipelines`)."""
+    return tiny_pipelines()
 
 
 def _request(cfg, batch, seed):
@@ -212,11 +185,15 @@ def test_converter_strict_load_of_trained_weights(small_weights):
     cfg = tcfg.small()
     dual, vae = TorchDual(cfg.unet), TorchVAE(cfg.vae)
     n_dec = sum("/controldec/" in k for k in dual_flat)
-    assert n_dec > 0
-    assert load_flax(dual, dual_flat) == n_dec == count_skipped(dual_flat)
-    assert load_flax(vae, vae_flat) == 0
-    # every file key but the decoder's became a state-dict entry
-    assert len(state_dict_from_flax(dual_flat)) == len(dual_flat) - n_dec
+    assert n_dec == 202
+    # strict: every key of the file is loaded, the decoder's included
+    assert load_flax(dual, dual_flat) == len(dual_flat) == 684
+    assert load_flax(vae, vae_flat) == len(vae_flat)
+    assert len(state_dict_from_flax(dual_flat)) == len(dual_flat)
+    k = dual_flat["params/controldec/conv_out/kernel"]
+    np.testing.assert_array_equal(
+        dual.controldec.conv_out.weight.detach().numpy(),
+        k.transpose(3, 2, 0, 1))
     # layouts: conv (kh,kw,I,O) -> (O,I,kh,kw), dense (I,O) -> (O,I)
     k = dual_flat["params/unet/conv_in/kernel"]
     np.testing.assert_array_equal(dual.unet.conv_in.weight.detach().numpy(),

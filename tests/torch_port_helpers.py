@@ -1,7 +1,8 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: seeded numpy parameters for a flax module (from `jax.eval_shape`
-of its init, so no flax init runs), flattening to `/`-joined paths, and
-the relative-error check every parity test states."""
+of its init, so no flax init runs), flattening to `/`-joined paths, a
+JAX tiny() pipeline with seeded weights beside the port loaded with the
+same ones, and the relative-error check every parity test states."""
 
 from __future__ import annotations
 
@@ -68,3 +69,41 @@ def assert_rel_close(got, want, rel: float, what: str = "") -> float:
     err = np.abs(got - want).max() / scale
     assert err <= rel, f"{what}: max rel err {err:.3e} > {rel:.1e}"
     return err
+
+
+def tiny_pipelines(latent_size: int = 8):
+    """A JAX tiny() pipeline with seeded random f32 weights (built from
+    `jax.eval_shape` of the inits: no flax init runs) and the port on the
+    CPU in f32 loaded with the same weights -> (jax pipe, port pipe)."""
+    import jax.numpy as jnp
+
+    from unirenderer_tpu.core import config as jcfg
+    from unirenderer_tpu.models.clip_text import CLIPTextEncoder, blank_ids
+    from unirenderer_tpu.models.dual_stream import DualStreamModel
+    from unirenderer_tpu.models.vae import AutoencoderKL
+    from unirenderer_tpu.pipelines import UniRendererPipeline as JaxPipeline
+    from unirenderer_tpu_torch.core import config as tcfg
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+
+    cfg = jcfg.tiny(latent_size)
+    u, s = cfg.unet, cfg.unet.sample_size
+    dual = DualStreamModel(u, jnp.float32)
+    dual_p = random_params(flax_shapes(
+        dual, jnp.zeros((1, s, s, 4)), jnp.zeros((1, s, s, u.attr_channels)),
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, cfg.text.max_length, u.cross_attention_dim))), 1)
+    vae = AutoencoderKL(cfg.vae, jnp.float32)
+    vs = cfg.vae.sample_size
+    vae_p = random_params(flax_shapes(
+        vae, jnp.zeros((1, vs, vs, 3)), jax.random.key(0)), 2)
+    text = CLIPTextEncoder(cfg.text, jnp.float32)
+    text_p = random_params(flax_shapes(text, blank_ids(cfg.text)), 3)
+    jpipe = JaxPipeline(cfg, dual, dual_p, vae, vae_p, text, text_p)
+
+    tpipe = UniRendererPipeline.create(
+        tcfg.tiny(latent_size), torch.Generator().manual_seed(0),
+        device="cpu", dtype=torch.float32)
+    tpipe.load_flax(dual=flatten(dual_p["params"]),
+                    vae=flatten(vae_p["params"]),
+                    text=flatten(text_p["params"]))
+    return jpipe, tpipe

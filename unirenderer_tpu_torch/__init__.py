@@ -1,21 +1,24 @@
 """unirenderer_tpu_torch: the PyTorch/CUDA port of `unirenderer_tpu`.
 
 The JAX package stays the reference; this package re-implements its
-forward-rendering path (`UniRendererPipeline.mask2image_3mod_albedo`),
-its split-sum renderer and render collate, in PyTorch for an NVIDIA H100,
-with the TPU kernels on those paths written by hand in CUDA (`csrc/`).
+forward- and inverse-rendering paths
+(`UniRendererPipeline.mask2image_3mod_albedo`,
+`real_image2mask_3mod_albedo`), its split-sum renderer and render
+collate, in PyTorch for an NVIDIA H100, with the TPU kernels on those
+paths written by hand in CUDA (`csrc/`).
 Module names mirror the JAX package:
 
     core/       configs (own copy), npz reader, flax -> torch weight converter
     diffusion/  DDPM x0 schedule and the UniPC sampler step
-    ops/        kernel wrappers (GroupNorm+SiLU, flash attention, the tile
+    ops/        kernel wrappers (GroupNorm+SiLU, flash attention and the
+                splash / unet_flash attention routes, the tile
                 rasterizer), the nvcc build of `csrc/*.cu`, and the
                 renderer's transforms, textures and cubemaps
     models/     nn.Modules: layers, UNet blocks, CLIP text, VAE, dual stream
     render/     meshes, cameras, environment lights, `render_mesh`
     data/       datasets, the render collate, the synthetic data generator
-    eval/       PSNR and the held-out forward-PSNR leg
-    pipelines   UniRendererPipeline (forward rendering)
+    eval/       metrics and the held-out harness (forward and inverse legs)
+    pipelines   UniRendererPipeline (forward and inverse rendering)
 
 Public functions keep the JAX package's NHWC / (B, S, H, D) layouts.
 Entry points run on the card (`device="cuda"`) unless the caller passes

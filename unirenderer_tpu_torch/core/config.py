@@ -80,8 +80,10 @@ class DiffusionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
-    """Inference recipe: UniPC (order 2, bh2), no guidance."""
+    """Inference recipe: UniPC (order 2, bh2), no guidance; inverse
+    rendering averages an ensemble of 5 runs (1 at small() and tiny())."""
     num_steps: int = 20
+    ensemble: int = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +159,7 @@ def small() -> SystemConfig:
             vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
             max_length=16, intermediate_size=512,
         ),
+        sampler=SamplerConfig(ensemble=1),
         render=RenderConfig(resolution=64, env_res=32, env_min_res=8,
                             max_mip_level=2, raster_chunk=256),
         data=DataConfig(resolution=64, texture_res=64,
@@ -186,7 +189,7 @@ def tiny(latent_size: int = 8) -> SystemConfig:
             vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
             max_length=16, intermediate_size=64,
         ),
-        sampler=SamplerConfig(num_steps=3),
+        sampler=SamplerConfig(num_steps=3, ensemble=1),
         render=RenderConfig(resolution=32, env_res=16, env_min_res=4,
                             max_mip_level=1, raster_chunk=64),
         data=DataConfig(resolution=16, texture_res=32,

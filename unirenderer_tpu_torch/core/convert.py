@@ -10,19 +10,16 @@ state-dict key by joining with `.` and renaming the leaf:
 
 (the inverse of the layout rules in `unirenderer_tpu/models/surgery.py`).
 Loading is strict: every parameter of the module is filled and every key
-of the file is used, except the attribute decoder (`controldec/...`), which
-this slice does not port; those keys are skipped by name and counted.
+of the file is used; nothing is skipped.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
-
-SKIPPED_PREFIXES = ("controldec/",)
 
 
 def _strip_collection(key: str) -> str:
@@ -32,14 +29,10 @@ def _strip_collection(key: str) -> str:
 def state_dict_from_flax(flat: Mapping[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
     """{flax path joined with '/': array} -> {state-dict key: tensor}.
-    A leading `params/` collection name is dropped; skipped prefixes are
-    left out (see `load_flax`)."""
+    A leading `params/` collection name is dropped."""
     out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
-        path = _strip_collection(key)
-        if path.startswith(SKIPPED_PREFIXES):
-            continue
-        *mods, leaf = path.split("/")
+        *mods, leaf = _strip_collection(key).split("/")
         a = np.asarray(arr)
         if leaf == "kernel":
             if a.ndim == 4:
@@ -56,14 +49,9 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
     return out
 
 
-def count_skipped(keys: Iterable[str]) -> int:
-    return sum(_strip_collection(k).startswith(SKIPPED_PREFIXES)
-               for k in keys)
-
-
 def load_flax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
     """Fill `module` from flax params, strictly (shapes and key sets must
-    match).  Returns the number of skipped attribute-decoder keys."""
+    match).  Returns the number of tensors loaded: every key of `flat`."""
     sd = state_dict_from_flax(flat)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
@@ -76,4 +64,4 @@ def load_flax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} vs port "
                              f"{tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
-    return count_skipped(flat)
+    return len(sd)

@@ -1,17 +1,20 @@
-"""The forward leg of the held-out quality harness (counterpart of
-`tools/eval_quality.py`'s forward rendering): render the held-out maps
-with the render collate, forward-render them with the pipeline, and score
-PSNR against the rendered image.
+"""The held-out quality harness (counterpart of `tools/eval_quality.py`):
+render the held-out maps with the render collate, forward-render them with
+the pipeline and score PSNR against the rendered image; with `--inverse`,
+also inverse-render the rendered image and score the maps it gives back
+(per-map PSNR, the normal angle, the masked metallic/roughness error).
 
     python -m unirenderer_tpu_torch.eval.quality [--device cuda]
         [--dtype bfloat16] [--n 32] [--steps 20] [--noise-seeds 1000]
-        [--text-seed 0]
+        [--inverse] [--ensemble 1]
 
 writes the seed-99 held-out set of `tools/make_data_r05.sh` (32 meshes, 8
 envs; ~2 MB) to a temporary directory with `data/synthetic.py`, loads the
 trained small() weights (`artifacts/r05/dual_small.npz`,
-`artifacts/r04/vae_small.npz`) and prints one JSON line with the forward
-PSNR per noise seed.
+`artifacts/r04/vae_small.npz`) and the text encoder the JAX harness scores
+with (`artifacts/r05/text_small.npz`, written by
+`tools/export_text_params_r05.py`), and prints one JSON line with the
+scores per noise seed.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from unirenderer_tpu_torch.data.objaverse import (
     ObjaverseDataTest, collate_render,
 )
-from unirenderer_tpu_torch.eval.metrics import psnr
+from unirenderer_tpu_torch.eval.metrics import NormalMetric, masked_mean, psnr
 
 BATCH = 4
 ITEM_SEED = 1234          # ObjaverseDataTest's item sampler
@@ -39,6 +42,8 @@ ITEM_SEED = 1234          # ObjaverseDataTest's item sampler
 HELD_OUT = dict(n_mesh=32, n_env=8, env_res=32, env_min_res=8, seed=99)
 DUAL_NPZ = "artifacts/r05/dual_small.npz"
 VAE_NPZ = "artifacts/r04/vae_small.npz"
+TEXT_NPZ = "artifacts/r05/text_small.npz"
+INVERSE_MAPS = ("normal", "albedo", "spec_light", "diff_light")
 
 
 def held_out_paths(root: str):
@@ -52,6 +57,23 @@ def held_out_paths(root: str):
     return meshes, envs
 
 
+def _held_out_batches(pipe, mesh_paths: List[str], env_dirs: List[str],
+                      n: int):
+    """`n` held-out items (ObjaverseDataTest with seed 1234) collated in
+    batches of 4 at the VAE's resolution on the pipeline's device."""
+    res = pipe.cfg.vae.sample_size
+    ds = ObjaverseDataTest(pipe.cfg.data, mesh_paths, env_dirs,
+                           seed=ITEM_SEED)
+    items = [ds[i % len(ds)] for i in range(n)]
+    for start in range(0, n, BATCH):
+        yield collate_render(items[start:start + BATCH], resolution=res,
+                             device=pipe.device)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.float().cpu().numpy()
+
+
 def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
                  n: int = 32, num_steps: int = 20, noise_seed: int = 1000,
                  log=None) -> Dict:
@@ -61,14 +83,9 @@ def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
     `material_image_encode=True`.  Batch i draws its noise from a
     generator seeded `noise_seed + i` on the pipeline's device; the
     forward image is scored unclipped."""
-    cfg = pipe.cfg
-    res = cfg.vae.sample_size
-    ds = ObjaverseDataTest(cfg.data, mesh_paths, env_dirs, seed=ITEM_SEED)
-    items = [ds[i % len(ds)] for i in range(n)]
     scores = []
-    for bi, start in enumerate(range(0, n, BATCH)):
-        batch = collate_render(items[start:start + BATCH], resolution=res,
-                               device=pipe.device)
+    for bi, batch in enumerate(_held_out_batches(pipe, mesh_paths,
+                                                 env_dirs, n)):
         gen = torch.Generator(device=pipe.device).manual_seed(
             noise_seed + bi)
         fwd = pipe.mask2image_3mod_albedo(
@@ -77,8 +94,8 @@ def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
             env=batch["env"], mask=batch["mask"],
             metallic=batch["metallic"], roughness=batch["roughness"],
             generator=gen, num_steps=num_steps, material_image_encode=True)
-        scores.append(psnr((fwd.float().cpu().numpy() + 1) / 2,
-                           (batch["image"].float().cpu().numpy() + 1) / 2))
+        scores.append(psnr((_numpy(fwd) + 1) / 2,
+                           (_numpy(batch["image"]) + 1) / 2))
         if log is not None:
             log(f"batch {bi}: psnr_fwd={scores[-1]:.2f}")
     return dict(psnr_forward_render=float(np.mean(scores)),
@@ -86,35 +103,71 @@ def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
                 noise_seed=noise_seed)
 
 
+def inverse_scores(pipe, mesh_paths: List[str], env_dirs: List[str],
+                   n: int = 32, num_steps: int = 20, noise_seed: int = 1000,
+                   ensemble: int = 1, log=None) -> Dict:
+    """The inverse leg of `tools/eval_quality.py` over the same `n` items:
+    each rendered image and its mask through `real_image2mask_3mod_albedo`
+    (`ensemble` members, batch i's noise from a generator seeded
+    `noise_seed + i`); per-map PSNR of normal, albedo, spec_light and
+    diff_light (mean over batches), the normal angle inside the mask over
+    all pixels (`NormalMetric`), and the mean over batches of the masked
+    metallic/roughness MAE."""
+    maps = {k: [] for k in INVERSE_MAPS}
+    normal = NormalMetric()
+    mr_mae = []
+    for bi, batch in enumerate(_held_out_batches(pipe, mesh_paths,
+                                                 env_dirs, n)):
+        gen = torch.Generator(device=pipe.device).manual_seed(
+            noise_seed + bi)
+        inv = pipe.real_image2mask_3mod_albedo(
+            image=batch["image"], mask=batch["mask"], generator=gen,
+            num_steps=num_steps, ensemble=ensemble)
+        for k in INVERSE_MAPS:
+            maps[k].append(psnr((_numpy(inv[k]) + 1) / 2,
+                                (_numpy(batch[k]) + 1) / 2))
+        mask01 = (_numpy(batch["mask"])[..., 0] + 1) / 2 > 0.5
+        normal.update(_numpy(inv["normal"]), _numpy(batch["normal"]), mask01)
+        m_pred = masked_mean(_numpy(inv["metallic"]), mask01)
+        r_pred = masked_mean(_numpy(inv["roughness"]), mask01)
+        mr_mae.append(float(
+            np.abs(m_pred - _numpy(batch["metallic"])).mean()
+            + np.abs(r_pred - _numpy(batch["roughness"])).mean()) / 2)
+        if log is not None:
+            log(f"batch {bi}: inverse psnr normal={maps['normal'][-1]:.2f} "
+                f"albedo={maps['albedo'][-1]:.2f} mr_mae={mr_mae[-1]:.3f}")
+    return dict(psnr_maps={k: float(np.mean(v)) for k, v in maps.items()},
+                normal_angle=normal.summary(),
+                metal_rough_mae=float(np.mean(mr_mae)), n_objects=n,
+                steps=num_steps, ensemble=ensemble, noise_seed=noise_seed)
+
+
 def small_trained_pipeline(device="cuda", dtype=torch.bfloat16,
-                           root: str = ".", text_seed: int = 0):
-    """The small() pipeline with the repo's trained weights.  They carry no
-    text encoder, so the CLIP weights are random, drawn on the CPU from
-    `text_seed` whatever the device: the blank-prompt context they give
-    shapes the render, and the CPU and the card must see the same one."""
+                           root: str = "."):
+    """The small() pipeline with the repo's trained weights and the text
+    encoder the JAX harness scores with (the r05 weights carry none: the
+    JAX harness draws it from `UniRendererPipeline.create(small(),
+    key(0), f32)`, and `tools/export_text_params_r05.py` wrote it out)."""
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.core.checkpoint import load_params_npz
-    from unirenderer_tpu_torch.models.clip_text import CLIPTextEncoder
-    from unirenderer_tpu_torch.pipelines import (
-        UniRendererPipeline, fill_random_,
-    )
-    cfg = config.small()
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
     pipe = UniRendererPipeline.create(
-        cfg, torch.Generator(device=device).manual_seed(0), device=device,
-        dtype=dtype)
-    text = CLIPTextEncoder(cfg.text)
-    fill_random_(text, torch.Generator().manual_seed(text_seed))
-    pipe.text.load_state_dict(text.state_dict())
+        config.small(), torch.Generator(device=device).manual_seed(0),
+        device=device, dtype=dtype)
     dual, _ = load_params_npz(os.path.join(root, DUAL_NPZ))
     vae, _ = load_params_npz(os.path.join(root, VAE_NPZ))
-    pipe.load_flax(dual=dual, vae=vae)
+    text, _ = load_params_npz(os.path.join(root, TEXT_NPZ))
+    pipe.load_flax(dual=dual, vae=vae, text=text)
     return pipe
 
 
-def held_out_psnr(pipe, n: int = 32, num_steps: int = 20,
-                  noise_seeds: Sequence[int] = (1000,), log=None) -> Dict:
+def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
+                    noise_seeds: Sequence[int] = (1000,),
+                    inverse: bool = False, ensemble: int = 1,
+                    log=None) -> Dict:
     """Write the held-out set to a temporary directory (env prefilter on the
-    pipeline's device), then `forward_psnr` once per noise seed."""
+    pipeline's device), then `forward_psnr` once per noise seed, and with
+    `inverse` `inverse_scores` once per noise seed."""
     from unirenderer_tpu_torch.data.synthetic import write_dataset
     with tempfile.TemporaryDirectory(prefix="held_out_") as root:
         t = time.perf_counter()
@@ -122,17 +175,34 @@ def held_out_psnr(pipe, n: int = 32, num_steps: int = 20,
                       log=log or (lambda msg: None), **HELD_OUT)
         gen_s = time.perf_counter() - t
         meshes, envs = held_out_paths(root)
-        runs = []
+        runs, inv_runs = [], []
         for seed in noise_seeds:
             t = time.perf_counter()
             r = forward_psnr(pipe, meshes, envs, n=n, num_steps=num_steps,
                              noise_seed=seed, log=log)
             r["seconds"] = time.perf_counter() - t
             runs.append(r)
+            if inverse:
+                t = time.perf_counter()
+                r = inverse_scores(pipe, meshes, envs, n=n,
+                                   num_steps=num_steps, noise_seed=seed,
+                                   ensemble=ensemble, log=log)
+                r["seconds"] = time.perf_counter() - t
+                inv_runs.append(r)
     vals = [r["psnr_forward_render"] for r in runs]
-    return dict(psnr_forward_render=float(np.mean(vals)),
-                per_seed=vals, runs=runs, generate_seconds=gen_s,
-                held_out=HELD_OUT)
+    out = dict(psnr_forward_render=float(np.mean(vals)), per_seed=vals,
+               runs=runs, generate_seconds=gen_s, held_out=HELD_OUT)
+    if inverse:
+        out["inverse"] = dict(
+            psnr_maps={k: float(np.mean([r["psnr_maps"][k]
+                                         for r in inv_runs]))
+                       for k in INVERSE_MAPS},
+            normal_angle_mean=float(np.mean(
+                [r["normal_angle"]["mean"] for r in inv_runs])),
+            metal_rough_mae=float(np.mean(
+                [r["metal_rough_mae"] for r in inv_runs])),
+            ensemble=ensemble, runs=inv_runs)
+    return out
 
 
 def main(argv=None):
@@ -144,20 +214,22 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--noise-seeds", default="1000")
-    ap.add_argument("--text-seed", type=int, default=0,
-                    help="seed of the random CLIP text encoder")
+    ap.add_argument("--inverse", action="store_true",
+                    help="also score the inverse leg")
+    ap.add_argument("--ensemble", type=int, default=None,
+                    help="inverse ensemble members (small(): 1)")
     args = ap.parse_args(argv)
     on_cpu = torch.device(args.device).type == "cpu"
     args.dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
     if args.dtype != "bfloat16" and not on_cpu:
         ap.error("the card's kernels take bfloat16 only")
-    pipe = small_trained_pipeline(args.device, getattr(torch, args.dtype),
-                                  text_seed=args.text_seed)
-    out = held_out_psnr(pipe, args.n, args.steps,
-                        [int(s) for s in args.noise_seeds.split(",")],
-                        log=lambda msg: print(msg, flush=True))
-    out.update(device=args.device, dtype=args.dtype,
-               text_seed=args.text_seed, torch=torch.__version__)
+    pipe = small_trained_pipeline(args.device, getattr(torch, args.dtype))
+    ensemble = args.ensemble or pipe.cfg.sampler.ensemble
+    out = held_out_scores(pipe, args.n, args.steps,
+                          [int(s) for s in args.noise_seeds.split(",")],
+                          inverse=args.inverse, ensemble=ensemble,
+                          log=lambda msg: print(msg, flush=True))
+    out.update(device=args.device, dtype=args.dtype, torch=torch.__version__)
     print(json.dumps(out), flush=True)
 
 

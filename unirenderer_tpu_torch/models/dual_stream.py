@@ -1,14 +1,19 @@
-"""The dual-stream denoiser: image UNet + attribute encoder.
+"""The dual-stream denoiser: image UNet, attribute encoder and attribute
+decoder.
 
-Counterpart of `unirenderer_tpu/models/dual_stream.py` for the forward-
-rendering path: `ImageUNet`, `AttrEncoder` and the two split entry points
-the sampler uses, `DualStreamModel.encode_attr` (run once per request: in
-forward rendering the attribute stream is clean at t_attr = 0, so the
-encoder's residuals do not change across denoise steps) and
-`image_stream_with_residuals` (one UNet pass per step).  The attribute
-decoder (flax name `controldec`) comes with the inverse-rendering slice.
+Counterpart of `unirenderer_tpu/models/dual_stream.py`: `ImageUNet`,
+`AttrEncoder`, `AttrDecoder` (flax name `controldec`) and the split entry
+points the sampler uses.  Forward rendering: `encode_attr` (run once per
+request: the attribute stream is clean at t_attr = 0, so the encoder's
+residuals do not change across denoise steps) and
+`image_stream_with_residuals` (one UNet pass per step).  Inverse
+rendering: `unet_raw_taps` (the UNet's encoder half, once per request: the
+image latent is clean at t_img = 0 and the decoder reads the taps before
+any residual is added) and `attr_streams_with_unet_taps` (encoder and
+decoder, once per step).
 
-Submodule names are the flax names (`unet`, `controlnet`, `down_0`, ...).
+Submodule names are the flax names (`unet`, `controlnet`, `controldec`,
+`down_0`, ...).
 """
 
 from __future__ import annotations
@@ -38,16 +43,28 @@ def down_tap_channels(cfg: UNetConfig) -> List[int]:
     return chs
 
 
-class _EncoderHalf(nn.Module):
-    """time embedding, conv_in and the down + mid blocks shared by the
-    UNet and the attribute encoder."""
+class _Trunk(nn.Module):
+    """The time embedding every stream carries (flax `_Trunk.time_embed`)."""
 
-    def __init__(self, cfg: UNetConfig, in_channels: int):
+    def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
+        self.time_embedding = TimestepEmbedMLP(cfg.block_out_channels[0],
+                                               cfg.time_embed_dim)
+
+    def time_embed(self, t: torch.Tensor) -> torch.Tensor:
+        return self.time_embedding(
+            timestep_embedding(t, self.cfg.block_out_channels[0]))
+
+
+class _EncoderHalf(_Trunk):
+    """conv_in and the down + mid blocks shared by the UNet and the
+    attribute encoder."""
+
+    def __init__(self, cfg: UNetConfig, in_channels: int):
+        super().__init__(cfg)
         chs = cfg.block_out_channels
         temb = cfg.time_embed_dim
-        self.time_embedding = TimestepEmbedMLP(chs[0], temb)
         self.conv_in = Conv(in_channels, chs[0], 3, padding=1)
         prev = chs[0]
         for i, ch in enumerate(chs):
@@ -60,10 +77,6 @@ class _EncoderHalf(nn.Module):
         self.mid = MidBlock(chs[-1], cfg.num_heads, cfg.cross_attention_dim,
                             cfg.transformer_layers, cfg.norm_num_groups, temb)
 
-    def time_embed(self, t: torch.Tensor) -> torch.Tensor:
-        return self.time_embedding(
-            timestep_embedding(t, self.cfg.block_out_channels[0]))
-
     def encode(self, x: torch.Tensor, temb: torch.Tensor,
                ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
         x = self.conv_in(x.to(self.conv_in.weight.dtype))
@@ -74,14 +87,11 @@ class _EncoderHalf(nn.Module):
         return tuple(taps), self.mid(x, temb, ctx)
 
 
-class ImageUNet(_EncoderHalf):
-    """SD-geometry UNet over the image latent; residuals from the attribute
-    encoder are added to its encoder half's taps and mid output.
+class _DecoderHalf:
+    """The up blocks, conv_norm_out (through K1) and conv_out shared by the
+    UNet and the attribute decoder (a mixin of an `nn.Module`)."""
 
-    forward -> img_pred (f32)."""
-
-    def __init__(self, cfg: UNetConfig):
-        super().__init__(cfg, cfg.in_channels)
+    def _add_decoder_half(self, cfg: UNetConfig, out_channels: int) -> None:
         chs = cfg.block_out_channels
         rev = tuple(reversed(chs))
         n_skip = cfg.layers_per_block + 1
@@ -99,12 +109,34 @@ class ImageUNet(_EncoderHalf):
             prev = ch
         self.conv_norm_out = FusedGroupNorm(chs[0], cfg.norm_num_groups, 1e-5,
                                             silu=True)
-        self.conv_out = Conv(chs[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv(chs[0], out_channels, 3, padding=1)
+
+    def decode(self, x: torch.Tensor, skips: Taps, temb: torch.Tensor,
+               ctx: torch.Tensor) -> torch.Tensor:
+        """Up blocks over the mid output `x`, consuming `skips` from the
+        end; -> conv_out(silu(norm(x))) in f32."""
+        skips = list(skips)
+        n_skip = self.cfg.layers_per_block + 1
+        for i in range(len(self.cfg.block_out_channels)):
+            blk_skips = tuple(skips[-n_skip:])
+            del skips[-n_skip:]
+            x = getattr(self, f"up_{i}")(x, blk_skips, temb, ctx)
+        return self.conv_out(self.conv_norm_out(x)).float()
+
+
+class ImageUNet(_EncoderHalf, _DecoderHalf):
+    """SD-geometry UNet over the image latent; residuals from the attribute
+    encoder are added to its encoder half's taps and mid output.
+
+    forward -> img_pred (f32)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg, cfg.in_channels)
+        self._add_decoder_half(cfg, cfg.out_channels)
 
     def forward(self, sample: torch.Tensor, t_img: torch.Tensor,
                 ctx: torch.Tensor, down_residuals: Optional[Taps] = None,
                 mid_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.cfg
         temb = self.time_embed(t_img)
         down_taps, x = self.encode(sample, temb, ctx)
         if down_residuals is not None:
@@ -112,21 +144,16 @@ class ImageUNet(_EncoderHalf):
                               for d, r in zip(down_taps, down_residuals))
         if mid_residual is not None:
             x = x + mid_residual.to(x.dtype)
-
-        skips = list(down_taps)
-        n_skip = cfg.layers_per_block + 1
-        for i in range(len(cfg.block_out_channels)):
-            blk_skips = tuple(skips[-n_skip:])
-            del skips[-n_skip:]
-            x = getattr(self, f"up_{i}")(x, blk_skips, temb, ctx)
-        return self.conv_out(self.conv_norm_out(x)).float()
+        return self.decode(x, down_taps, temb, ctx)
 
 
 class AttrEncoder(_EncoderHalf):
     """ControlNet-style copy of the UNet encoder over the 28-channel
     attribute latent; the image latent never enters it.
 
-    forward -> (ctrl_down, ctrl_mid): the zero-conv'd taps and mid output."""
+    forward -> (ctrl_down, ctrl_mid, raw_down, raw_mid): the zero-conv'd
+    taps and mid output (the residuals into the UNet), then the raw ones
+    (the attribute decoder's skips and mid input)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__(cfg, cfg.attr_channels)
@@ -135,27 +162,58 @@ class AttrEncoder(_EncoderHalf):
         self.zero_mid = ZeroConv(cfg.block_out_channels[-1])
 
     def forward(self, attr_latent: torch.Tensor, t_attr: torch.Tensor,
-                ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
+                ctx: torch.Tensor
+                ) -> Tuple[Taps, torch.Tensor, Taps, torch.Tensor]:
         temb = self.time_embed(t_attr)
         down_taps, mid = self.encode(attr_latent, temb, ctx)
         ctrl_down = tuple(getattr(self, f"zero_down_{i}")(t)
                           for i, t in enumerate(down_taps))
-        return ctrl_down, self.zero_mid(mid)
+        return ctrl_down, self.zero_mid(mid), down_taps, mid
+
+
+class AttrDecoder(_Trunk, _DecoderHalf):
+    """UNet-decoder copy that predicts the 28-channel attribute latent.
+    Its skips are the attribute encoder's raw taps plus zero convs of the
+    UNet's raw taps (`control_down_{i}`, `control_mid`): the image-to-
+    attribute direction of the cross-conditioning.
+
+    forward -> attr_pred (B, H, W, 28), f32."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg)
+        for i, ch in enumerate(down_tap_channels(cfg)):
+            self.add_module(f"control_down_{i}", ZeroConv(ch))
+        self.control_mid = ZeroConv(cfg.block_out_channels[-1])
+        self._add_decoder_half(cfg, cfg.attr_channels)
+
+    def forward(self, enc_mid: torch.Tensor, enc_down: Taps,
+                t_attr: torch.Tensor, ctx: torch.Tensor, unet_down: Taps,
+                unet_mid: torch.Tensor) -> torch.Tensor:
+        temb = self.time_embed(t_attr)
+        skips = tuple(
+            e + getattr(self, f"control_down_{i}")(u).to(e.dtype)
+            for i, (e, u) in enumerate(zip(enc_down, unet_down)))
+        x = enc_mid + self.control_mid(unet_mid).to(enc_mid.dtype)
+        return self.decode(x, skips, temb, ctx)
 
 
 class DualStreamModel(nn.Module):
-    """The image UNet (`unet`) and the attribute encoder (`controlnet`)."""
+    """The image UNet (`unet`), the attribute encoder (`controlnet`) and
+    the attribute decoder (`controldec`)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
         self.unet = ImageUNet(cfg)
         self.controlnet = AttrEncoder(cfg)
+        self.controldec = AttrDecoder(cfg)
 
     def encode_attr(self, attr_latent: torch.Tensor, t_attr: torch.Tensor,
                     ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
         dtype = self.unet.conv_in.weight.dtype
-        return self.controlnet(attr_latent, t_attr, ctx.to(dtype))
+        ctrl_down, ctrl_mid, _, _ = self.controlnet(attr_latent, t_attr,
+                                                    ctx.to(dtype))
+        return ctrl_down, ctrl_mid
 
     def image_stream_with_residuals(self, img_latent: torch.Tensor,
                                     t_img: torch.Tensor, ctx: torch.Tensor,
@@ -164,3 +222,22 @@ class DualStreamModel(nn.Module):
         dtype = self.unet.conv_in.weight.dtype
         return self.unet(img_latent, t_img, ctx.to(dtype), ctrl_down,
                          ctrl_mid)
+
+    def unet_raw_taps(self, img_latent: torch.Tensor, t_img: torch.Tensor,
+                      ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:
+        """The UNet's encoder half alone: its raw down taps and mid output,
+        before any residual (the up blocks do not run)."""
+        dtype = self.unet.conv_in.weight.dtype
+        return self.unet.encode(img_latent, self.unet.time_embed(t_img),
+                                ctx.to(dtype))
+
+    def attr_streams_with_unet_taps(self, attr_latent: torch.Tensor,
+                                    t_attr: torch.Tensor, ctx: torch.Tensor,
+                                    unet_down: Taps,
+                                    unet_mid: torch.Tensor) -> torch.Tensor:
+        """Encoder then decoder over the attribute latent at `t_attr`, with
+        the UNet's raw taps from `unet_raw_taps` -> attr_pred (f32)."""
+        ctx = ctx.to(self.unet.conv_in.weight.dtype)
+        _, _, enc_down, enc_mid = self.controlnet(attr_latent, t_attr, ctx)
+        return self.controldec(enc_mid, enc_down, t_attr, ctx, unet_down,
+                               unet_mid)

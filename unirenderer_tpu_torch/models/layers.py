@@ -13,14 +13,23 @@ convolution runs in that layout without copies.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unirenderer_tpu_torch.ops.flash_attention import flash_attention
+from unirenderer_tpu_torch.ops.attn_kernel import unet_flash_attention
+from unirenderer_tpu_torch.ops.flash_attention import (
+    flash_attention, tileable,
+)
 from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+from unirenderer_tpu_torch.ops.splash_attention import splash_attention
+
+# UNIRENDER_ATTN values the port takes: "auto" (the default), "flash", and
+# the two routes for tileable self-attention
+ATTN_ROUTES = ("auto", "flash", "splash", "unet_flash")
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -146,10 +155,30 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              is_self: bool) -> torch.Tensor:
+    """The attention route, read from UNIRENDER_ATTN on every call, as the
+    JAX package's `maybe_flash_attention` does: "splash" sends tileable
+    self-attention (`ops.flash_attention.tileable`) to K2s, "unet_flash" to
+    K3; everything else (cross-attention, the untileable levels, and every
+    shape under "auto" / "flash" / unset) goes to K2."""
+    which = os.environ.get("UNIRENDER_ATTN", "auto")
+    if which not in ATTN_ROUTES:
+        raise ValueError(f"UNIRENDER_ATTN={which!r}: the port takes "
+                         f"{', '.join(ATTN_ROUTES)}")
+    if is_self and which in ("splash", "unet_flash") and tileable(
+            q.shape[1], k.shape[1], q.shape[-1]):
+        route = splash_attention if which == "splash" else \
+            unet_flash_attention
+        return route(q, k, v)
+    return flash_attention(q, k, v)
+
+
 class Attention(nn.Module):
     """Multi-head attention, self- or cross- depending on `ctx`; SD1.x
-    convention (inner dim = query dim, no bias on q/k/v).  Every call goes
-    through kernel K2 (ops/flash_attention.py)."""
+    convention (inner dim = query dim, no bias on q/k/v).  Each call goes
+    through the route `attention` picks: K2 (ops/flash_attention.py) by
+    default."""
 
     def __init__(self, dim: int, num_heads: int,
                  ctx_dim: Optional[int] = None):
@@ -170,7 +199,7 @@ class Attention(nn.Module):
         q = self.to_q(x).reshape(b, sq, self.num_heads, hd)
         k = self.to_k(src).reshape(b, sk, self.num_heads, hd)
         v = self.to_v(src).reshape(b, sk, self.num_heads, hd)
-        out = flash_attention(q, k, v)
+        out = attention(q, k, v, is_self=ctx is None)
         return self.to_out(out.reshape(b, sq, inner))
 
 

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
 Each `csrc/<name>.cu` has a plain `extern "C"` interface and includes no
-PyTorch header, so one `nvcc` call builds it into a shared library in
-seconds.  The library goes to `_build/` beside this package (ignored by
-git) under a name that carries a hash of the source and the flags, so a
-second process on the same machine reuses it.  It is loaded with `ctypes`.
+PyTorch header (only the shared `csrc/*.cuh` device code), so one `nvcc`
+call builds it into a shared library in seconds.  The library goes to
+`_build/` beside this package (ignored by git) under a name that carries a
+hash of the source, the headers and the flags, so a second process on the
+same machine reuses it.  It is loaded with `ctypes`.
 
 A missing `nvcc` or a failed build raises: nothing falls back.
 """
@@ -24,7 +25,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("groupnorm", "flash_attention", "rasterize")
+SOURCES = ("groupnorm", "flash_attention", "splash_attention",
+           "attn_kernel", "rasterize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +56,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,30 +1,43 @@
-"""UniRendererPipeline, forward rendering (counterpart of
+"""UniRendererPipeline, forward and inverse rendering (counterpart of
 `unirenderer_tpu/pipelines.py`).
 
-`mask2image_3mod_albedo` takes intrinsic maps (normal, albedo, specular
-and diffuse light, environment, mask; (B, H, W, 3) in [-1, 1]) plus
+Forward rendering: `mask2image_3mod_albedo` takes intrinsic maps (normal,
+albedo, specular and diffuse light, environment, mask; (B, H, W, 3) in
+[-1, 1]) plus
 metallic/roughness, VAE-encodes the maps in chunks of `VAE_CHUNK` (with
 `material_image_encode`, the masked [m, m, r] material image as a
 seventh map, as training feeds it; else the raw constant latent), runs
 the attribute encoder once (the attribute stream is clean at t_attr = 0,
 so its residuals are loop-invariant), then denoises the image latent with
-UniPC, one UNet pass per step, and VAE-decodes the result.  The JAX
-package's `lax.scan` is a Python loop here; the sampler's math is f32
-whatever the model's type.
+UniPC, one UNet pass per step, and VAE-decodes the result.
+
+Inverse rendering: `real_image2mask_3mod_albedo` (and
+`image2mask_3mod_albedo`, its ensemble-1 form) takes a photo and its mask,
+VAE-encodes both once, tiles them over the ensemble (folded into the
+batch), runs the UNet's encoder half once (the image latent is clean at
+t_img = 0, and the attribute decoder reads its taps before any residual),
+then denoises the six attribute groups from noise with UniPC, one encoder
++ decoder pass per step, VAE-decodes them and averages the ensemble's
+members after the decode.
+
+The JAX package's `lax.scan` is a Python loop here; the sampler's math is
+f32 whatever the model's type.
 
 Random numbers: `torch.Generator` and `jax.random` give different numbers
-from the same seed, so the public method draws the VAE posterior noise and
-the initial latent noise from a generator and hands them as tensors to
-`mask2image_3mod_albedo_with_noise`, which tests call with the noise the
-JAX pipeline drew.
+from the same seed, so the public methods draw their noise (VAE posterior
+samples, the initial latents) from a generator and hand it as tensors to
+the `..._with_noise` methods, which tests call with the noise the JAX
+pipeline drew.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unirenderer_tpu_torch.core.config import LATENT_CHANNELS, SystemConfig
@@ -34,10 +47,16 @@ from unirenderer_tpu_torch.diffusion.schedule import (
     DiffusionSchedule, inference_timesteps,
 )
 from unirenderer_tpu_torch.models.clip_text import CLIPTextEncoder, blank_ids
-from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
+from unirenderer_tpu_torch.models.dual_stream import (
+    DualStreamModel, down_tap_channels,
+)
 from unirenderer_tpu_torch.models.vae import AutoencoderKL
+from unirenderer_tpu_torch.ops.flash_attention import tileable
 
 _MAP_NAMES = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
+# the attribute groups after the clean mask head, in the latent's order
+ATTR_GROUPS = ("material", "normal", "albedo", "spec_light", "diff_light",
+               "env")
 
 
 @torch.no_grad()
@@ -100,14 +119,14 @@ class UniRendererPipeline:
                   text: Optional[Mapping[str, np.ndarray]] = None) -> int:
         """Load flax parameters ({path joined with '/': array}, as
         `core/checkpoint.load_params_npz` returns them) into the given
-        parts, strictly.  Returns the number of skipped decoder keys."""
-        skipped = 0
+        parts, strictly.  Returns the number of tensors loaded."""
+        loaded = 0
         for flat, module in ((dual, self.dual), (vae, self.vae),
                              (text, self.text)):
             if flat is not None:
-                skipped += load_flax(module, flat)
+                loaded += load_flax(module, flat)
         self._blank_ctx = None
-        return skipped
+        return loaded
 
     # ------------------------------------------------------------------
     # Encoders / decoders
@@ -153,6 +172,17 @@ class UniRendererPipeline:
     # Sampling
     # ------------------------------------------------------------------
 
+    def _timesteps(self, num_steps: int):
+        """(timesteps, the next ones with 0 last, is-final flags) on the
+        pipeline's device."""
+        dev = self.device
+        ts = torch.as_tensor(inference_timesteps(
+            self.cfg.diffusion.num_train_timesteps, num_steps), device=dev)
+        ts_next = torch.cat([ts[1:], torch.zeros(1, dtype=ts.dtype,
+                                                 device=dev)])
+        is_final = torch.arange(num_steps, device=dev) == num_steps - 1
+        return ts, ts_next, is_final
+
     def _sample_forward(self, img_init: torch.Tensor,
                         attr_groups: List[torch.Tensor],
                         mask_latent: torch.Tensor, ctx: torch.Tensor,
@@ -160,12 +190,7 @@ class UniRendererPipeline:
         """The forward-rendering branch of the JAX `_sample_core` (no
         guidance, encoder evaluated once), its scan as a loop."""
         dev = self.device
-        ts = torch.as_tensor(inference_timesteps(
-            self.cfg.diffusion.num_train_timesteps, num_steps), device=dev)
-        ts_next = torch.cat([ts[1:], torch.zeros(1, dtype=ts.dtype,
-                                                 device=dev)])
-        is_final = torch.arange(num_steps, device=dev) == num_steps - 1
-
+        ts, ts_next, is_final = self._timesteps(num_steps)
         img = img_init.float()
         attr_flat = torch.cat([mask_latent.float()]
                               + [g.float() for g in attr_groups], dim=-1)
@@ -179,6 +204,37 @@ class UniRendererPipeline:
             state, img = unipc_step(self.schedule, state, img, pred, ts[i],
                                     ts_next[i], is_final[i])
         return img
+
+    def _sample_inverse(self, img_latent: torch.Tensor,
+                        attr_init: torch.Tensor, mask_latent: torch.Tensor,
+                        ctx: torch.Tensor, num_steps: int) -> torch.Tensor:
+        """The hoisted inverse branch of the JAX `_sample_core` (no
+        guidance): the UNet's raw taps once at t = 0, then per step the
+        attribute encoder and decoder at t.  `attr_init` (G, N, h, w, 4) is
+        the groups' initial noise; the G groups step through UniPC as one
+        tensor with a leading group axis (the JAX package vmaps
+        `unipc_step` over them: every group shares the timesteps and the
+        step count, and the step is elementwise, so the batching is
+        exact).  Returns the denoised groups (G, N, h, w, 4)."""
+        dev = self.device
+        ts, ts_next, is_final = self._timesteps(num_steps)
+        nb = img_latent.shape[0]
+        unet_down, unet_mid = self.dual.unet_raw_taps(
+            img_latent.float(), torch.zeros(nb, dtype=torch.long, device=dev),
+            ctx)
+        mask = mask_latent.float()
+        groups = attr_init.float()
+        state = UniPCState.init(groups.shape, device=dev)
+        for i in range(num_steps):
+            attr_flat = torch.cat([mask, *groups.unbind(0)], dim=-1)
+            pred = self.dual.attr_streams_with_unet_taps(
+                attr_flat, ts[i].expand(nb), ctx, unet_down, unet_mid)
+            # drop the clean mask's prediction, split the rest into groups
+            pred = torch.stack(pred[..., LATENT_CHANNELS:].split(
+                LATENT_CHANNELS, dim=-1))
+            state, groups = unipc_step(self.schedule, state, groups, pred,
+                                       ts[i], ts_next[i], is_final[i])
+        return groups
 
     # ------------------------------------------------------------------
     # Public API
@@ -254,6 +310,221 @@ class UniRendererPipeline:
                                        lat["mask"], ctx, num_steps)
         return self._vae_decode(img_lat)
 
+    @staticmethod
+    def material_from_latent(material_latent: torch.Tensor):
+        """Inverse of `material_latent`: the means of the two halves,
+        mapped back to [0, 1] -> (metallic, roughness), each (B, h, w)."""
+        m = (material_latent[..., :2].mean(dim=-1) + 1.0) / 2.0
+        r = (material_latent[..., 2:].mean(dim=-1) + 1.0) / 2.0
+        return m, r
+
+    @torch.no_grad()
+    def image2mask_3mod_albedo(self, *, image, mask,
+                               generator: torch.Generator,
+                               num_steps: Optional[int] = None,
+                               material_readout: str = "decode"
+                               ) -> Dict[str, torch.Tensor]:
+        """Inverse rendering of a rendered image: the ensemble-1 form of
+        `real_image2mask_3mod_albedo`."""
+        return self._inverse(image=image, mask=mask, generator=generator,
+                             num_steps=num_steps, ensemble=1,
+                             material_readout=material_readout)
+
+    @torch.no_grad()
+    def real_image2mask_3mod_albedo(self, *, image, mask,
+                                    generator: torch.Generator,
+                                    num_steps: Optional[int] = None,
+                                    ensemble: Optional[int] = None,
+                                    material_readout: str = "decode"
+                                    ) -> Dict[str, torch.Tensor]:
+        """Inverse rendering: a photo (B, H, W, 3) in [-1, 1] and its mask
+        (B, H, W, 3) in [-1, 1] -> the maps, averaged over `ensemble` runs
+        (`cfg.sampler.ensemble` by default).
+
+        Returns normal, albedo, spec_light, diff_light, env (B, H, W, 3)
+        decoded images; metallic, roughness per-pixel maps (B, H, W), or
+        (B, h, w) with `material_readout="latent"`, multiplied by the mask;
+        material_latents (B, h, w, 4).  `material_readout`: "decode" reads
+        metallic/roughness from the VAE-decoded [m, m, r] material image,
+        the inverse of what training encodes; "latent" from the raw latent
+        halves (`material_from_latent`).  `generator` (on the pipeline's
+        device) draws the VAE posterior noise and the groups' noise."""
+        return self._inverse(image=image, mask=mask, generator=generator,
+                             num_steps=num_steps,
+                             ensemble=ensemble or self.cfg.sampler.ensemble,
+                             material_readout=material_readout)
+
+    def _inverse(self, *, image, mask, generator, num_steps, ensemble,
+                 material_readout):
+        e = max(1, int(ensemble))
+        b, hgt, wid, _ = np.shape(image)
+        f = self.cfg.vae.downscale
+        lat = (hgt // f, wid // f, LATENT_CHANNELS)
+        enc_noise = torch.randn((2 * b,) + lat, generator=generator,
+                                device=self.device)
+        attr_noise = torch.randn((len(ATTR_GROUPS), e * b) + lat,
+                                 generator=generator, device=self.device)
+        return self.real_image2mask_3mod_albedo_with_noise(
+            image=image, mask=mask, enc_noise=enc_noise,
+            attr_noise=attr_noise, num_steps=num_steps, ensemble=e,
+            material_readout=material_readout)
+
+    @torch.no_grad()
+    def real_image2mask_3mod_albedo_with_noise(
+            self, *, image, mask, enc_noise, attr_noise,
+            num_steps: Optional[int] = None, ensemble: int = 1,
+            material_readout: str = "decode") -> Dict[str, torch.Tensor]:
+        """`real_image2mask_3mod_albedo` with its noise given: `enc_noise`
+        (2 * B, h, w, 4) for the posterior samples of image then mask, and
+        `attr_noise` (6, ensemble * B, h, w, 4), the groups' initial noise
+        with the ensemble's members member-major along the batch."""
+        if material_readout not in ("decode", "latent"):
+            raise ValueError(f"material_readout {material_readout!r}: "
+                             f"'decode' or 'latent'")
+        num_steps = num_steps or self.cfg.sampler.num_steps
+        e = max(1, int(ensemble))
+        image, mask = self._tensor(image), self._tensor(mask)
+        lat = self._encode_maps(dict(image=image, mask=mask),
+                                self._tensor(enc_noise))
+        img_lat, mask_lat = lat["image"], lat["mask"]
+        b = img_lat.shape[0]
+        # the ensemble folded into the batch: latents encoded once, tiled
+        img_lat, mask_lat = img_lat.repeat(e, 1, 1, 1), mask_lat.repeat(
+            e, 1, 1, 1)
+        n = e * b
+        groups = self._sample_inverse(img_lat, self._tensor(attr_noise),
+                                      mask_lat, self.blank_context(n),
+                                      num_steps)
+        g = groups.shape[0]
+        material = groups[0]
+        if material_readout == "decode":
+            decoded = self._vae_decode(groups.flatten(0, 1)).unflatten(
+                0, (g, n))
+            mat01 = torch.clamp(decoded[0] * 0.5 + 0.5, 0.0, 1.0)  # [m,m,r]
+            metallic = mat01[..., :2].mean(dim=-1)
+            roughness = mat01[..., 2]
+            maps = decoded[1:]
+        else:
+            metallic, roughness = self.material_from_latent(material)
+            maps = self._vae_decode(groups[1:].flatten(0, 1)).unflatten(
+                0, (g - 1, n))
+        if mask.shape[-1] == 3:
+            # the material read-out is masked
+            maskv = ((mask[..., 0] + 1.0) / 2.0).repeat(e, 1, 1)
+            mh = resize_nearest(maskv, metallic.shape[1:])
+            metallic, roughness = metallic * mh, roughness * mh
+        out = dict(zip(ATTR_GROUPS[1:], maps.unbind(0)))
+        out.update(metallic=metallic, roughness=roughness,
+                   material_latents=material)
+        # members averaged after the decode
+        return {k: v.unflatten(0, (e, b)).mean(dim=0) for k, v in out.items()}
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """(N, H, W) -> (N, *size), nearest neighbour at half-pixel centres, as
+    `jax.image.resize(..., "nearest")` samples (PyTorch's "nearest-exact";
+    its "nearest" samples the top-left corners and differs)."""
+    return F.interpolate(x[:, None], size=tuple(size),
+                         mode="nearest-exact")[:, 0]
+
+
+class _KernelCalls:
+    """The calls the two model kernels get, worked out from the config:
+    GroupNorm (x shape, groups, eps, silu) and attention (q shape, k
+    shape), in the form the wrappers record in `.seen`, with a count of
+    each attention signature."""
+
+    def __init__(self, cfg: SystemConfig, image_size: int):
+        self.cfg, self.image_size = cfg, image_size
+        self.lat = image_size // cfg.vae.downscale
+        self.gn, self.attn = set(), Counter()
+
+    def _resnet(self, n, r, cin, cout, groups):
+        self.gn.add(((n, r, r, cin), groups, 1e-5, True))
+        self.gn.add(((n, r, r, cout), groups, 1e-5, True))
+
+    def _transformer(self, n, r, ch):
+        u = self.cfg.unet
+        self.gn.add(((n, r, r, ch), u.norm_num_groups, 1e-6, False))
+        q = (n, r * r, u.num_heads, ch // u.num_heads)
+        self.attn[(q, q)] += 1
+        self.attn[(q, (n, self.cfg.text.max_length) + q[2:])] += 1
+
+    def encoder_half(self, n):
+        """conv_in, down and mid blocks (the UNet's and the attribute
+        encoder's) at batch n."""
+        u = self.cfg.unet
+        r, prev = self.lat, u.block_out_channels[0]
+        for i, ch in enumerate(u.block_out_channels):
+            for _ in range(u.layers_per_block):
+                self._resnet(n, r, prev, ch, u.norm_num_groups)
+                prev = ch
+                if u.down_block_attn[i]:
+                    self._transformer(n, r, ch)
+            if i != len(u.block_out_channels) - 1:
+                r //= 2
+        self._resnet(n, r, prev, prev, u.norm_num_groups)
+        self._transformer(n, r, prev)
+        self._resnet(n, r, prev, prev, u.norm_num_groups)
+
+    def decoder_half(self, n):
+        """Up blocks and conv_norm_out (the UNet's and the attribute
+        decoder's) at batch n."""
+        u = self.cfg.unet
+        skips = down_tap_channels(u)
+        r = self.lat // 2 ** (len(u.block_out_channels) - 1)
+        prev = u.block_out_channels[-1]
+        for i, ch in enumerate(reversed(u.block_out_channels)):
+            for _ in range(u.layers_per_block + 1):
+                self._resnet(n, r, prev + skips.pop(), ch, u.norm_num_groups)
+                prev = ch
+                if u.up_block_attn[i]:
+                    self._transformer(n, r, ch)
+            if i != len(u.block_out_channels) - 1:
+                r *= 2
+        self.gn.add(((n, self.lat, self.lat, u.block_out_channels[0]),
+                     u.norm_num_groups, 1e-5, True))
+
+    def vae_encoder(self, images):
+        """The VAE encoder over a stack of `images`, in VAE_CHUNK chunks."""
+        vc, g = self.cfg.vae, self.cfg.vae.norm_num_groups
+        for n in _chunks(images):
+            r, prev = self.image_size, vc.block_out_channels[0]
+            for i, ch in enumerate(vc.block_out_channels):
+                for _ in range(vc.layers_per_block):
+                    self._resnet(n, r, prev, ch, g)
+                    prev = ch
+                if i != len(vc.block_out_channels) - 1:
+                    r //= 2
+            self._vae_mid(n, r, prev)
+            self.gn.add(((n, r, r, prev), g, 1e-6, True))
+
+    def vae_decoder(self, latents):
+        """The VAE decoder over a stack of `latents`, in VAE_CHUNK chunks."""
+        vc, g = self.cfg.vae, self.cfg.vae.norm_num_groups
+        for n in _chunks(latents):
+            r, prev = self.lat, vc.block_out_channels[-1]
+            self._vae_mid(n, r, prev)
+            for i, ch in enumerate(reversed(vc.block_out_channels)):
+                for _ in range(vc.layers_per_block + 1):
+                    self._resnet(n, r, prev, ch, g)
+                    prev = ch
+                if i != len(vc.block_out_channels) - 1:
+                    r *= 2
+            self.gn.add(((n, self.image_size, self.image_size, prev), g,
+                         1e-6, True))
+
+    def _vae_mid(self, n, r, ch):
+        g = self.cfg.vae.norm_num_groups
+        self._resnet(n, r, ch, ch, g)
+        self.gn.add(((n, r, r, ch), g, 1e-6, False))
+        self._resnet(n, r, ch, ch, g)
+
+
+def _chunks(n: int) -> List[int]:
+    chunk = UniRendererPipeline.VAE_CHUNK
+    return [min(chunk, n - i) for i in range(0, n, chunk)]
+
 
 def kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
                  material_image_encode: bool = False):
@@ -263,67 +534,42 @@ def kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
     GroupNorm (x shape, groups, eps, silu) and attention (q shape, k
     shape), in the form the wrappers record in `.seen`.  Lets a check on
     the card cover exactly the main path's shapes."""
-    u, vc = cfg.unet, cfg.vae
-    gn, attn = set(), set()
-    lat = image_size // vc.downscale
+    calls = _KernelCalls(cfg, image_size)
+    calls.encoder_half(batch)
+    calls.decoder_half(batch)
+    calls.vae_encoder(batch * (len(_MAP_NAMES) + int(material_image_encode)))
+    calls.vae_decoder(batch)
+    return calls.gn, set(calls.attn)
 
-    def resnet(n, r, cin, cout, groups):
-        gn.add(((n, r, r, cin), groups, 1e-5, True))
-        gn.add(((n, r, r, cout), groups, 1e-5, True))
 
-    def transformer(r, ch):
-        gn.add(((batch, r, r, ch), u.norm_num_groups, 1e-6, False))
-        q = (batch, r * r, u.num_heads, ch // u.num_heads)
-        attn.add((q, q))
-        attn.add((q, (batch, cfg.text.max_length) + q[2:]))
+def inverse_kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
+                         ensemble: int = 1,
+                         material_readout: str = "decode"):
+    """The same for one `real_image2mask_3mod_albedo` of `batch` requests
+    with `ensemble` members (the model runs at batch * ensemble)."""
+    n = batch * ensemble
+    calls = _KernelCalls(cfg, image_size)
+    calls.encoder_half(n)           # the UNet's taps, the attribute encoder
+    calls.decoder_half(n)           # the attribute decoder
+    calls.vae_encoder(2 * batch)    # image and mask
+    groups = len(ATTR_GROUPS) - int(material_readout == "latent")
+    calls.vae_decoder(groups * n)
+    return calls.gn, set(calls.attn)
 
-    # UNet and attribute encoder: the same encoder half
-    r, prev, skips = lat, u.block_out_channels[0], [u.block_out_channels[0]]
-    for i, ch in enumerate(u.block_out_channels):
-        for _ in range(u.layers_per_block):
-            resnet(batch, r, prev, ch, u.norm_num_groups)
-            prev = ch
-            if u.down_block_attn[i]:
-                transformer(r, ch)
-            skips.append(ch)
-        if i != len(u.block_out_channels) - 1:
-            skips.append(ch)
-            r //= 2
-    resnet(batch, r, prev, prev, u.norm_num_groups)
-    transformer(r, prev)
-    resnet(batch, r, prev, prev, u.norm_num_groups)
-    # UNet decoder half
-    for i, ch in enumerate(reversed(u.block_out_channels)):
-        for _ in range(u.layers_per_block + 1):
-            resnet(batch, r, prev + skips.pop(), ch, u.norm_num_groups)
-            prev = ch
-            if u.up_block_attn[i]:
-                transformer(r, ch)
-        if i != len(u.block_out_channels) - 1:
-            r *= 2
-    gn.add(((batch, lat, lat, u.block_out_channels[0]), u.norm_num_groups,
-            1e-5, True))
 
-    # VAE encoder over the stacked maps, decoder over the batch
-    n = batch * (len(_MAP_NAMES) + int(material_image_encode))
-    g = vc.norm_num_groups
-    r, prev = image_size, vc.block_out_channels[0]
-    for i, ch in enumerate(vc.block_out_channels):
-        for _ in range(vc.layers_per_block):
-            resnet(n, r, prev, ch, g)
-            prev = ch
-        if i != len(vc.block_out_channels) - 1:
-            r //= 2
-    for n_mid, r_mid in ((n, r), (batch, lat)):     # encoder, decoder mid
-        resnet(n_mid, r_mid, prev, prev, g)
-        gn.add(((n_mid, r_mid, r_mid, prev), g, 1e-6, False))
-    gn.add(((n, r, r, prev), g, 1e-6, True))
-    r = lat
-    for i, ch in enumerate(reversed(vc.block_out_channels)):
-        for _ in range(vc.layers_per_block + 1):
-            resnet(batch, r, prev, ch, g)
-            prev = ch
-        if i != len(vc.block_out_channels) - 1:
-            r *= 2
-    gn.add(((batch, image_size, image_size, prev), g, 1e-6, True))
-    return gn, attn
+def forward_self_attention_calls(cfg: SystemConfig, batch: int,
+                                 image_size: int, num_steps: int) -> int:
+    """How many attention calls of one `mask2image_3mod_albedo` are
+    tileable self-attention (`ops.flash_attention.tileable`), the calls the
+    splash and unet_flash routes take: the attribute encoder once, the
+    UNet's both halves once per step."""
+    enc, unet = _KernelCalls(cfg, image_size), _KernelCalls(cfg, image_size)
+    enc.encoder_half(batch)
+    unet.encoder_half(batch)
+    unet.decoder_half(batch)
+
+    def tileable_self(counter):
+        return sum(c for (q, k), c in counter.items()
+                   if q == k and tileable(q[1], k[1], q[3]))
+
+    return tileable_self(enc.attn) + num_steps * tileable_self(unet.attn)
