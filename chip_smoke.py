@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,2,3,4,5,6,7,8] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,10] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7: phase 8 reuses phase 3's flagship weights, freed before phase 7):
+8, 7, 9, 10: phase 8 reuses phase 3's flagship weights, freed before
+phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
      and the -Xptxas -v report (registers, shared memory, spills)
@@ -16,7 +17,13 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      (bounded logits) and unpipelined; time of kernel, plain version and
      one PyTorch library call (F.group_norm + F.silu,
      F.scaled_dot_product_attention: timed here as yardsticks, never called
-     by the port), and each case's bound
+     by the port), and each case's bound; the attention backward (K2 bwd)
+     at every attention shape of the flagship training step (batch 2) plus
+     a ragged case each: dQ, dK, dV each within 2^-6 * max|plain| of the
+     plain backward in f32 on the same bf16 inputs and the kernel's own O
+     and log-sum-exp, that log-sum-exp within 2^-7 of the plain one, and
+     the forward's output with the log-sum-exp bit-identical to the serving
+     launch's; library = autograd of F.scaled_dot_product_attention
   3  the main path at flagship width: random bf16 weights made on the card
      from a seed, 2 requests (one batch of 2) through
      `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
@@ -56,13 +63,29 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      =unet_flash: the route's launches equal the tileable self-attention
      calls worked out from the config, and the image is within 0.05 *
      max|ref| (phase 4's bf16 model rule) of the default route's
+  9  training at small(): the trained r05 weights loaded strictly into a
+     Trainer on the card (bf16) and one on the CPU (f32); one step's
+     gradients from the same batch and draws, an inverse and a forward
+     step: the loss within 1 % of f32, the flattened gradients' cosine
+     >= 0.999 and their norm within 1 % (the bf16 gap alone, port in bf16
+     on the CPU: < 0.06 %, 1 - cos < 2e-5, < 0.08 %); then 2 steps of
+     `Trainer.train` on the card write a params npz that loads back
+     strictly
+ 10  flagship training: random f32 master weights from the seed, batch 2
+     of maps collated from phase 6's scenes (K4), 4 steps of the Trainer
+     (bf16 compute, remat on, AdamW), forward / inverse / forward /
+     inverse (the branch forced through the draws): cold and warm seconds
+     per step of each kind, peak memory; loss and grad norm finite, the
+     parameters changed, the launches of K1, K2 and K2 bwd per step equal
+     to the count from the config (`train_step_launches`, with remat's
+     recompute), every call they got checked in phase 2
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
 a line {"kernels": [...]}.  --out DIR also writes every measured case to
 DIR/chip_smoke.json; --profile adds a torch.profiler breakdown by kernel
-class of one flagship forward request (phase 3) and one flagship inverse
-request (phase 8).
+class of one flagship forward request (phase 3), one flagship inverse
+request (phase 8) and one warm flagship inverse train step (phase 10).
 """
 
 from __future__ import annotations
@@ -100,7 +123,14 @@ INVERSE_REFERENCE = {
     5: dict(normal=19.031464968418838, albedo=16.181585165493882,
             angle=28.55341614233909, mr_mae=0.23219199385493994),
 }
-ALL_PHASES = "0,1,2,3,4,5,6,7,8"
+BWD_REL = 2.0 ** -6              # K2 bwd vs plain, rel. to max|ref|
+# K2's log-sum-exp vs the plain one of its own bf16-staged Q, absolute:
+# 9.5e-7-1.9e-6 read on the H100, 1.3e-3-6.7e-3 more against f32 Q
+LSE_ABS = 2.0 ** -14
+TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
+TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
+TRAIN_NORM_REL = 0.01
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10"
 
 
 def log(msg: str) -> None:
@@ -244,30 +274,102 @@ def attn_case(torch, F, timer, gen, case, kernel="flash_attention",
                 bound_by="operations" if flop_ms >= byte_ms else "bytes")
 
 
-def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases):
-    """`route_cases`: (kernel name, case, options) of the two routes."""
+def attn_bwd_case(torch, F, timer, gen, case):
+    """K2 bwd at (q shape, k shape): dQ, dK, dV against the plain backward
+    on the same bf16 inputs, O and log-sum-exp from the K2 forward (whose
+    log-sum-exp is held against the plain one, and whose output must be
+    the serving launch's, bit for bit); the times."""
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, attention_lse_reference,
+        flash_attention, flash_attention_backward, flash_attention_with_lse,
+        staged_lse_reference,
+    )
+    qs, ks = case
+    q = torch.randn(qs, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(ks, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(ks, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(qs, generator=gen, device="cuda").bfloat16()
+    o, lse = flash_attention_with_lse(q, k, v)
+    same_o = bool(torch.equal(o, flash_attention(q, k, v)))
+    lse_err = (lse - staged_lse_reference(q, k)).abs().max().item()
+    # the part of the plain f32 version's distance that is Q's bf16 staging
+    lse_rounding = (lse - attention_lse_reference(q, k, v)[1]
+                    ).abs().max().item()
+    got = flash_attention_backward(q, k, v, o, lse, do)
+    want = attention_backward_reference(q, k, v, o, lse, do, torch.float32)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = ((g.float() - w).abs().max().item(),
+                      BWD_REL * w.abs().max().item())
+    del got, want
+    ok = (same_o and lse_err <= LSE_ABS
+          and all(e <= t for e, t in errs.values()))
+    ms = timer(lambda: flash_attention_backward(q, k, v, o, lse, do))
+    plain_ms = timer(lambda: attention_backward_reference(q, k, v, o, lse,
+                                                          do))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    library_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    del out
+    b, sq, h, d = qs
+    sk = ks[1]
+    # five products of 2 Sq Sk D per (batch, head): S, dP, dV, dQ, dK
+    flop_ms = 10.0 * b * h * sq * sk * d / BF16_FLOPS * 1e3
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(kernel="flash_attention_backward",
+                shape=[list(qs), list(ks)], errs=errs, lse_err=lse_err,
+                lse_tol=LSE_ABS, lse_rounding=lse_rounding,
+                forward_bit_identical=same_o, ok=ok,
+                max_abs_err=max(e for e, _ in errs.values()),
+                tol=min(t for _, t in errs.values()), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes")
+
+
+def case_ok(r) -> bool:
+    return r["ok"] if "ok" in r else r["max_abs_err"] <= r["tol"]
+
+
+def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
+                  bwd_cases):
+    """`route_cases`: (kernel name, case, options) of the two routes;
+    `bwd_cases`: (q shape, k shape) of K2 bwd."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     jobs = ([lambda c=c: gn_case(torch, F, timer, gen, c) for c in gn_cases]
             + [lambda c=c: attn_case(torch, F, timer, gen, c)
                for c in attn_cases]
             + [lambda n=n, c=c, o=o: attn_case(torch, F, timer, gen, c, n,
                                                **o)
-               for n, c, o in route_cases])
+               for n, c, o in route_cases]
+            + [lambda c=c: attn_bwd_case(torch, F, timer, gen, c)
+               for c in bwd_cases])
     results = []
     for job in jobs:
         r = job()
         results.append(r)
-        ok = r["max_abs_err"] <= r["tol"]
+        ok = case_ok(r)
         log(f"  {r['kernel']:16s} {json.dumps(r['shape'])} "
             + (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])} "
                if "groups" in r else "")
             + (f"{r['options']} " if r.get("options") else "")
+            + (" ".join(f"{n} {e:.3g}/{t:.3g}"
+                        for n, (e, t) in r["errs"].items())
+               + f" lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} (bf16 Q "
+               f"{r['lse_rounding']:.3g}) bit-identical "
+               f"fwd {int(r['forward_bit_identical'])} "
+               if "errs" in r else "")
             + f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
             f"{'ok' if ok else 'FAIL'}  kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
         torch.cuda.empty_cache()
-    bad = [r for r in results if not r["max_abs_err"] <= r["tol"]]
+    bad = [r for r in results if not case_ok(r)]
     check(not bad, f"{len(bad)} kernel case(s) out of tolerance")
     return results
 
@@ -299,9 +401,13 @@ def synthetic_request(torch, F, gen, batch, res):
 
 
 def _wrappers():
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        flash_attention_backward,
+    )
     from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
     from unirenderer_tpu_torch.ops.rasterize import rasterize
-    out = {"groupnorm_silu": fused_groupnorm_silu, "rasterize": rasterize}
+    out = {"groupnorm_silu": fused_groupnorm_silu, "rasterize": rasterize,
+           "flash_attention_backward": flash_attention_backward}
     out.update((k, fn) for k, (fn, _) in _attention_kernels().items())
     return out
 
@@ -383,6 +489,8 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
     ("K1 groupnorm_silu", ("gn_stats_kernel", "gn_finalize_kernel",
                            "gn_apply_kernel")),
     ("K2 flash_attention", ("flash_fwd_kernel",)),
+    ("K2 bwd flash_attention_backward", ("dkv_kernel<", "dq_kernel<",
+                                         "delta_kernel")),
     ("K2s splash_attention", ("splash_fwd_kernel",)),
     ("K3 attn_kernel", ("unet_flash_kernel",)),
     ("convolution", ("fprop", "convolve", "implicit_gemm", "winograd")),
@@ -404,10 +512,13 @@ def profile_request(torch, request):
         request()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
+    # device kernels only: a user annotation (the optimizer's
+    # "Optimizer.step#AdamW.step") spans kernels that are counted already
     kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     by_class = {}
@@ -992,6 +1103,143 @@ def phase_inverse(torch, F, cfg, pipe, checked, profile):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: a training step at small(), card against CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_small_training(torch):
+    import tempfile
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.core.checkpoint import load_params_npz
+    from unirenderer_tpu_torch.core.convert import load_flax
+    from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
+    from unirenderer_tpu_torch.train.compare import (
+        compare, small_weights, smooth_batch, trainer_with,
+    )
+    cfg = config.small()
+    t = time.perf_counter()
+    result = compare([("cuda", torch.bfloat16), ("cpu", torch.float32)])
+    for branch, r in result.items():
+        log(f"  small() {branch} step, card bf16 vs CPU f32: loss "
+            f"{r['loss']:.6g} vs {r['loss_ref']:.6g} (rel err "
+            f"{r['loss_rel_err']:.3g}, limit {TRAIN_LOSS_REL}), gradient "
+            f"cosine {r['grad_cos']:.6f} (>= {TRAIN_GRAD_COS}), norm "
+            f"{r['grad_norm']:.5g} vs {r['grad_norm_ref']:.5g} (ratio "
+            f"{r['norm_ratio']:.5f}, within {TRAIN_NORM_REL})")
+        check(r["loss_rel_err"] <= TRAIN_LOSS_REL
+              and r["grad_cos"] >= TRAIN_GRAD_COS
+              and abs(r["norm_ratio"] - 1) <= TRAIN_NORM_REL,
+              f"small() {branch} train step on the card disagrees with the "
+              f"CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer_with(cfg, small_weights(), "cuda", torch.bfloat16, tmp)
+        batch = {k: v.cuda() for k, v in smooth_batch(cfg, 2, SEED).items()}
+        reset_counters()
+        tr.train(iter([batch] * 2), max_steps=2)
+        torch.cuda.synchronize()
+        launches, _ = read_counters()
+        for name in ("groupnorm_silu", "flash_attention",
+                     "flash_attention_backward"):
+            check(launches[name] > 0, f"{name} never launched in training")
+        flat, step = load_params_npz(
+            os.path.join(tr.ckpt_dir, "params_00000002.npz"))
+        n = load_flax(DualStreamModel(cfg.unet), flat)
+        with open(tr.metrics_path) as f:
+            logged = [json.loads(line)["step"] for line in f]
+    check(step == 2 and n == len(flat) and logged == [1],
+          f"Trainer checkpoint: step {step}, {n} of {len(flat)} keys, "
+          f"logged steps {logged}")
+    log(f"  2 Trainer steps on the card: params npz of step {step} reloads "
+        f"strictly ({n} keys); launches {launches}; phase "
+        f"{time.perf_counter() - t:.1f} s")
+    result.update(npz_keys=n, trainer_launches=launches)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: flagship training
+# ---------------------------------------------------------------------------
+
+
+def phase_flagship_training(torch, cfg, checked, profile):
+    import tempfile
+    import numpy as np
+    from unirenderer_tpu_torch.train.train_step import train_step_launches
+    from unirenderer_tpu_torch.train.trainer import Trainer, rendered_batches
+    d = cfg.data
+    items, _ = flagship_items(torch, cfg, np.random.default_rng(SEED))
+    counted = ("groupnorm_silu", "flash_attention",
+               "flash_attention_backward")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        trainer = Trainer(cfg, tmp, device="cuda")
+        torch.cuda.synchronize()
+        params = trainer.state.params
+        n_params = sum(p.numel() for p in params.values())
+        log(f"  flagship Trainer: {n_params / 1e9:.3f} B f32 master params, "
+            f"compute {trainer.compute_dtype}, remat {cfg.unet.remat}, "
+            f"built in {time.perf_counter() - t:.1f} s")
+        watch = {n: params[n].detach().clone() for n in
+                 (next(k for k in params if k.startswith(m))
+                  for m in ("unet.", "controlnet.", "controldec."))}
+        batches = rendered_batches(items, 2, d.resolution, d.ssaa,
+                                   device="cuda", seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        steps, totals = [], {}
+        for inverse in (False, True, False, True):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            reset_counters()
+            t = time.perf_counter()
+            metrics = trainer.step(batch, is_inverse=inverse)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, seen = read_counters()
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            want = train_step_launches(cfg, 2, inverse)
+            kind = "inverse" if inverse else "forward"
+            log(f"  {kind} step {trainer.state.step}: {wall:.3f} s, loss "
+                f"{loss:.5g}, grad norm {norm:.5g}, launches "
+                + ", ".join(f"{k} {launches[k]} (config {want[k]})"
+                            for k in counted))
+            check(math.isfinite(loss) and math.isfinite(norm),
+                  f"non-finite loss or grad norm at a {kind} step")
+            for k in counted:
+                check(launches[k] == want[k],
+                      f"{k}: {launches[k]} launches in a {kind} step, "
+                      f"{want[k]} from the config")
+                missed = seen[k] - checked[k]
+                check(not missed, f"{k} got calls phase 2 did not check: "
+                      f"{sorted(missed)[:3]}")
+            steps.append(dict(inverse=inverse, wall_s=wall, loss=loss,
+                              grad_norm=norm, launches=launches))
+            for k in counted:
+                totals[k] = totals.get(k, 0) + launches[k]
+        peak = torch.cuda.max_memory_allocated()
+        moved = [n for n, p0 in watch.items()
+                 if not torch.equal(p0, params[n].detach())]
+        check(len(moved) == len(watch), f"parameters did not change: "
+              f"{sorted(set(watch) - set(moved))}")
+        walls = {k: [s["wall_s"] for s in steps if s["inverse"] == inv]
+                 for k, inv in (("forward", False), ("inverse", True))}
+        log(f"  flagship train steps at batch 2, {d.resolution}^2: forward "
+            f"{walls['forward'][0]:.3f} s cold, {walls['forward'][1]:.3f} s "
+            f"warm; inverse {walls['inverse'][0]:.3f} s cold, "
+            f"{walls['inverse'][1]:.3f} s warm; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        result = dict(params=n_params, steps=steps, peak_bytes=peak,
+                      launches=totals, forward_wall_s=walls["forward"],
+                      inverse_wall_s=walls["inverse"])
+        if profile:
+            batch = next(batches)
+            result["profile"] = profile_request(
+                torch, lambda: trainer.step(batch, is_inverse=True))
+        del trainer, params, watch
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -1005,6 +1253,12 @@ KERNELS = {
         route="cuda", source="unirenderer_tpu_torch/csrc/flash_attention.cu",
         replaces="unirenderer_tpu/ops/flash_attention.py:68",
         # the 64^2 self-attention: most of the path's attention work
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "flash_attention_backward": dict(
+        route="cuda",
+        source="unirenderer_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:68",
+        # the 64^2 self-attention's backward, in every training step
         headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
     "splash_attention": dict(
         route="cuda", source="unirenderer_tpu_torch/csrc/splash_attention.cu",
@@ -1065,6 +1319,9 @@ def main(argv=None) -> int:
         from unirenderer_tpu_torch.pipelines import (
             inverse_kernel_cases, kernel_cases,
         )
+        from unirenderer_tpu_torch.train.train_step import (
+            train_kernel_cases,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr, flush=True)
@@ -1099,10 +1356,12 @@ def main(argv=None) -> int:
         cfg = config.flagship()
         gn_cases, attn_cases = set(), set()
         res = cfg.vae.sample_size
+        train_gn, train_attn = train_kernel_cases(cfg, 2, res)  # phase 10
         for gn, attn in (kernel_cases(cfg, 2, res, False),       # phase 3
                          kernel_cases(cfg, 2, res, True),        # phase 6
                          inverse_kernel_cases(cfg, 2, res,       # phase 8
-                                              INVERSE_ENSEMBLE)):
+                                              INVERSE_ENSEMBLE),
+                         (train_gn, train_attn)):
             gn_cases |= gn
             attn_cases |= attn
         routed = sorted((q, k) for q, k in attn_cases
@@ -1118,6 +1377,7 @@ def main(argv=None) -> int:
                           for c in routed if c[0][0] == 2])
         checked = {"groupnorm_silu": set(gn_cases),
                    "flash_attention": set(attn_cases),
+                   "flash_attention_backward": set(train_attn),
                    "splash_attention": set(routed),
                    "attn_kernel": set(routed)}
         # ---- 2: kernels against their plain versions
@@ -1130,7 +1390,9 @@ def main(argv=None) -> int:
             log(f"phase 2 kernels vs plain versions, bf16, tolerance "
                 f"2^-7 * max|ref| (TF32 off for the plain versions): "
                 f"{len(gn_cases)} GroupNorm + {len(attn_cases)} attention "
-                f"main-path cases + ragged, {len(route_cases)} route cases")
+                f"main-path cases + ragged, {len(route_cases)} route cases, "
+                f"{len(train_attn)} attention backward cases + ragged "
+                f"(tolerance 2^-6 * max|ref|)")
             ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                          ((1, 33, 31, 1920), 32, 1e-6, False)]
             ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -1138,7 +1400,8 @@ def main(argv=None) -> int:
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, sorted(gn_cases) + ragged_gn,
-                sorted(attn_cases) + ragged_attn, route_cases)
+                sorted(attn_cases) + ragged_attn, route_cases,
+                sorted(train_attn) + ragged_attn)
             del timer
             torch.cuda.empty_cache()
             (torch.backends.cuda.matmul.allow_tf32,
@@ -1203,6 +1466,22 @@ def main(argv=None) -> int:
                 "and inverse legs")
             record["held_out"] = phase_held_out(torch)
             log("phase 7 done")
+        # ---- 9: a small() training step, card against CPU
+        if 9 in phases:
+            log("phase 9 training at small(): trained weights, one step on "
+                "the card (bf16) against the CPU (f32); 2 Trainer steps")
+            record["small_training"] = phase_small_training(torch)
+            log("phase 9 done")
+        # ---- 10: flagship training
+        if 10 in phases:
+            log("phase 10 flagship training: batch 2 of collated maps, 4 "
+                "steps (forward, inverse, forward, inverse)")
+            training = phase_flagship_training(torch, cfg, checked,
+                                               args.profile)
+            launches["flash_attention_backward"] = training["launches"][
+                "flash_attention_backward"]
+            record["flagship_training"] = training
+            log("phase 10 done")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

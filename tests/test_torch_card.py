@@ -8,7 +8,14 @@ and no JAX it runs on its own:
 
 Tolerance: bf16 in and out, max|kernel - plain| <= 2^-7 * max|plain|: the
 rounding of a bf16 output plus the bf16 rounding of the softmax
-probabilities fed to the tensor cores.  The plain versions run in f32 on
+probabilities fed to the tensor cores.  The attention backward (K2 bwd):
+each of dQ, dK, dV within 2^-6 * max|plain| of the plain backward in f32
+on the same bf16 inputs (P and dS are also rounded to bf16 for the tensor
+cores, and Q is pre-scaled in bf16 as the forward does), the forward's
+log-sum-exp within 2^-7 of the plain one.  A train step on the card
+(bf16) against the same step in f32 on the CPU: loss within 2 %, gradient
+cosine >= 0.99, norm ratio within 2 % (tiny() random weights; the bf16
+gap alone measures well inside that).  The plain versions run in f32 on
 the same bf16 inputs, with TF32 off.  The rasterizer (f32) is held to the
 rule of tests/test_rasterize_pallas.py (`ops.rasterize.within_rule`:
 coverage equal, z and u, v within 1e-5, < 2 % of triangle ids different,
@@ -28,7 +35,8 @@ from unirenderer_tpu_torch.ops.attn_kernel import (
     unet_flash_attention, unet_flash_reference,
 )
 from unirenderer_tpu_torch.ops.flash_attention import (
-    attention_reference, flash_attention,
+    attention_backward_reference, attention_reference, flash_attention,
+    flash_attention_backward, flash_attention_with_lse, staged_lse_reference,
 )
 from unirenderer_tpu_torch.ops.groupnorm import (
     fused_groupnorm_silu, groupnorm_silu_reference,
@@ -315,3 +323,139 @@ def test_tiny_inverse_on_card(card, route, monkeypatch):
         assert out[key].shape == (2, res, res), key
         assert torch.isfinite(out[key]).all(), key
     assert counters[route].launches > n
+
+
+# ---------------------------------------------------------------------------
+# Training: the attention backward (K2 bwd) and the step on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_backward(q, k, v, do, what):
+    o, lse = flash_attention_with_lse(q, k, v)
+    lse_ref = staged_lse_reference(q, k)
+    n = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == n + 1
+    lse_err = (lse - lse_ref).abs().max().item()
+    assert lse_err <= 2.0 ** -14, f"{what} lse: {lse_err:.3g}"
+    want = attention_backward_reference(q, k, v, o, lse, do, torch.float32)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        err = (g.float() - w).abs().max().item()
+        tol = 2.0 ** -6 * w.abs().max().item()
+        assert err <= tol, f"{what} {name}: max|diff| {err:.3g} > {tol:.3g}"
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 256, 77, 8, 40),
+    (2, 64, 64, 8, 160), (2, 64, 77, 8, 160), (1, 1000, 333, 3, 24),
+    (2, 16, 16, 2, 16),
+])
+def test_flash_attention_backward_kernel(card, b, sq, sk, h, d):
+    q, k, v = _qkv(card, b, sq, sk, h, d, seed=5)
+    g = torch.Generator(device=card).manual_seed(6)
+    do = torch.randn((b, sq, h, d), generator=g, device=card).bfloat16()
+    _check_backward(q, k, v, do, f"({b},{sq},{sk},{h},{d})")
+
+
+def test_flash_attention_backward_reads_strided_operands(card):
+    g = torch.Generator(device=card).manual_seed(7)
+    qkv = torch.randn((2, 300, 3, 4, 40), generator=g, device=card).bfloat16()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn((2, 300, 2, 4, 40), generator=g,
+                     device=card).bfloat16()[:, :, 0]
+    _check_backward(q, k, v, do, "strided")
+
+
+def test_flash_attention_autograd_on_card(card):
+    q, k, v = (t.requires_grad_() for t in _qkv(card, 2, 256, 77, 4, 40, 8))
+    n_f, n_b = flash_attention.launches, flash_attention_backward.launches
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n_f + 1
+    assert flash_attention_backward.launches == n_b + 1
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 16, 1, 40), dtype=torch.bfloat16, device=card)
+    lse = torch.zeros((1, 1, 16), device=card)
+    with pytest.raises(ValueError):                 # lse of the wrong shape
+        flash_attention_backward(q, q, q, q, lse[:, :, :8], q)
+    with pytest.raises(TypeError):                  # f32 operands
+        flash_attention_backward(q.float(), q, q, q, lse, q)
+
+
+def _tiny_trainers(card, tmp_path):
+    """tiny() trainers on the card (bf16) and on the CPU (f32) holding the
+    same weights."""
+    from unirenderer_tpu_torch.core.convert import flax_from_module
+    from unirenderer_tpu_torch.train.trainer import Trainer
+    cfg = config.tiny()
+    on_card = Trainer(cfg, str(tmp_path / "card"), device=card)
+    on_cpu = Trainer(cfg, str(tmp_path / "cpu"), device="cpu")
+    for part in ("dual", "vae", "text"):
+        flat = flax_from_module(getattr(on_card, part))
+        getattr(on_cpu, f"install_{part}")(flat)
+    return cfg, on_card, on_cpu
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_tiny_train_step_on_card_matches_cpu(card, tmp_path, inverse):
+    from unirenderer_tpu_torch.train.compare import (
+        agreement, smooth_batch, step_grads,
+    )
+    from unirenderer_tpu_torch.train.train_step import draw
+    cfg, on_card, on_cpu = _tiny_trainers(card, tmp_path)
+    batch = smooth_batch(cfg, 2, seed=0)
+    lat = cfg.vae.sample_size // cfg.vae.downscale
+    draws = draw(torch.Generator().manual_seed(1), 2, (lat, lat), 1000,
+                 inverse)
+    r = agreement(step_grads(on_card, batch, draws),
+                  step_grads(on_cpu, batch, draws))
+    assert r["loss_rel_err"] <= 0.02, r
+    assert r["grad_cos"] >= 0.99, r
+    assert abs(r["norm_ratio"] - 1) <= 0.02, r
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_every_dual_parameter_gets_a_gradient_on_card(card, tmp_path,
+                                                      inverse):
+    """K1 and K2 under autograd on CUDA: no parameter upstream of a kernel
+    call is cut off from the loss."""
+    from unirenderer_tpu_torch.train.compare import smooth_batch
+    from unirenderer_tpu_torch.train.train_step import (
+        draw, make_grad_fn, train_step_launches,
+    )
+    from unirenderer_tpu_torch.train.trainer import Trainer
+    cfg = config.tiny()
+    tr = Trainer(cfg, str(tmp_path), device=card)
+    batch = {k: v.to(card) for k, v in smooth_batch(cfg, 2, 0).items()}
+    lat = cfg.vae.sample_size // cfg.vae.downscale
+    draws = draw(torch.Generator().manual_seed(2), 2, (lat, lat), 1000,
+                 inverse).to(card)
+    counters = {"groupnorm_silu": fused_groupnorm_silu,
+                "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
+    before = {k: c.launches for k, c in counters.items()}
+    grads, metrics = make_grad_fn(cfg, tr.dual, tr.vae, tr.schedule,
+                                  tr.compute_dtype)(tr.state.params, batch,
+                                                    tr.ctx, draws)
+    torch.cuda.synchronize()
+    names = list(tr.state.params)
+    assert len(grads) == len(names)
+    for name, g in zip(names, grads):
+        assert g is not None and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+    want = train_step_launches(cfg, 2, inverse)
+    for k, c in counters.items():
+        assert c.launches - before[k] == want[k], k
+    before = [p.detach().clone() for p in tr.state.params.values()]
+    metrics = tr.step(batch, is_inverse=inverse)
+    assert torch.isfinite(metrics["loss"]) and tr.state.step == 1
+    assert all(not torch.equal(a, p) for a, p in
+               zip(before, tr.state.params.values()))

@@ -2,7 +2,8 @@
 package: seeded numpy parameters for a flax module (from `jax.eval_shape`
 of its init, so no flax init runs), flattening to `/`-joined paths, a
 JAX tiny() pipeline with seeded weights beside the port loaded with the
-same ones, and the relative-error check every parity test states."""
+same ones, the training step's models, batch and replayed draws, and the
+relative-error check every parity test states."""
 
 from __future__ import annotations
 
@@ -107,3 +108,83 @@ def tiny_pipelines(latent_size: int = 8):
                     vae=flatten(vae_p["params"]),
                     text=flatten(text_p["params"]))
     return jpipe, tpipe
+
+
+def jax_models(cfg):
+    """Flax dual-stream model and VAE at `cfg` in f32 with seeded weights
+    (from `jax.eval_shape` of the inits: no flax init runs)."""
+    u, s = cfg.unet, cfg.unet.sample_size
+    import jax.numpy as jnp
+
+    from unirenderer_tpu.models.dual_stream import DualStreamModel as JaxDual
+    from unirenderer_tpu.models.vae import AutoencoderKL as JaxVAE
+    dual = JaxDual(u, jnp.float32)
+    dual_p = random_params(flax_shapes(
+        dual, jnp.zeros((1, s, s, 4)), jnp.zeros((1, s, s, u.attr_channels)),
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, cfg.text.max_length, u.cross_attention_dim))), 1)
+    vae = JaxVAE(cfg.vae, jnp.float32)
+    vs = cfg.vae.sample_size
+    vae_p = random_params(flax_shapes(
+        vae, jnp.zeros((1, vs, vs, 3)), jax.random.key(0)), 2)
+    return dual, dual_p, vae, vae_p
+
+
+def port_models(cfg, dual_p, vae_p, remat=False):
+    """The port's dual-stream model (f32 masters) and VAE loaded strictly
+    with the flax params."""
+    import dataclasses
+
+    from unirenderer_tpu_torch.core.convert import load_flax
+    from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
+    from unirenderer_tpu_torch.models.vae import AutoencoderKL
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet,
+                                                            remat=remat))
+    dual, vae = DualStreamModel(cfg.unet), AutoencoderKL(cfg.vae)
+    for m, p in ((dual, dual_p), (vae, vae_p)):
+        flat = flatten(p["params"])
+        assert load_flax(m, flat) == len(flat)
+    vae.requires_grad_(False)
+    return cfg, dual, vae
+
+
+def batch_and_ctx(cfg, seed, b=2):
+    from unirenderer_tpu_torch.train.train_step import BATCH_KEYS
+    rng = np.random.default_rng(seed)
+    hw = cfg.vae.sample_size
+    batch = {k: rng.uniform(-1, 1, (b, hw, hw, 3)).astype(np.float32)
+             for k in BATCH_KEYS}
+    ctx = rng.standard_normal(
+        (1, cfg.text.max_length, cfg.unet.cross_attention_dim)
+    ).astype(np.float32)
+    return batch, ctx
+
+
+def jax_draws(key, cfg, b):
+    """The random numbers JAX's `loss_fn(.., rng=key)` draws, replayed
+    from its `split(key, 7)`, as the port's Draws."""
+    from unirenderer_tpu.diffusion.schedule import compute_dual_t
+    from unirenderer_tpu_torch.train.train_step import BATCH_KEYS, Draws
+    h = cfg.vae.sample_size // cfg.vae.downscale
+    T = cfg.diffusion.num_train_timesteps
+    keys = jax.random.split(key, 7)
+    n = len(BATCH_KEYS)
+    t_img, t_attr, inv = compute_dual_t(keys[2], T, b)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.array(x)).to(dtype)
+
+    return Draws(
+        enc_noise=t(jax.random.normal(keys[0], (n * b, h, h, 4))),
+        env_noise=t(jax.random.normal(keys[1], (b, h, h, 4))),
+        t_img=t(t_img, torch.long), t_attr=t(t_attr, torch.long),
+        is_inverse=bool(inv),
+        noise_img=t(jax.random.normal(keys[3], (b, h, h, 4))),
+        noise_attr=t(jax.random.normal(keys[4], (b, h, h, 24))),
+        t_cycle=t(jax.random.randint(keys[5], (b,), 0, T), torch.long),
+        noise_cycle=t(jax.random.normal(keys[6], (b, h, h, 4))))
+
+
+def torch_tree(tree):
+    """{key: array} -> {key: tensor}."""
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}

@@ -1,8 +1,9 @@
-"""A numpy-only reader of the JAX package's params-only `.npz` exports.
+"""A numpy-only reader and writer of the JAX package's params-only `.npz`
+exports.
 
-Counterpart of `unirenderer_tpu/core/checkpoint.py` `load_params_npz`,
-but flat: it returns the flax paths joined with `/` (the keys
-`save_params_npz` writes), which is what `core/convert.py` takes.
+Counterparts of `unirenderer_tpu/core/checkpoint.py` `load_params_npz` and
+`save_params_npz`, but flat: they take and return the flax paths joined
+with `/` (the file's keys), which is what `core/convert.py` maps.
 """
 
 from __future__ import annotations
@@ -25,3 +26,17 @@ def load_params_npz(path: str) -> Tuple[Dict[str, np.ndarray], Optional[int]]:
             arr = z[key]
             flat[key] = arr.astype(np.float32) if arr.dtype.kind == "f" else arr
     return flat, step
+
+
+def save_params_npz(path: str, flat: Dict[str, np.ndarray],
+                    step: Optional[int] = None) -> None:
+    """Write {flax path: array} as one compressed npz in the JAX format:
+    float leaves stored as f16 (the JAX writer's default), others as they
+    are, and the step under `__step__` (-1 for none), so the JAX package's
+    `load_params_npz` reads it."""
+    out = {}
+    for key, arr in flat.items():
+        a = np.asarray(arr)
+        out[key] = a.astype(np.float16) if a.dtype.kind == "f" else a
+    np.savez_compressed(path, __step__=np.int64(-1 if step is None
+                                                 else step), **out)

@@ -3,14 +3,14 @@
 Only the parts the ported paths read are carried over: the model
 geometries (UNet, VAE, CLIP text), the diffusion schedule, the sampler
 recipe, the renderer and the data settings, with the same defaults and
-the same `flagship()`, `small()` and `tiny()` presets.  Training settings
-come with the slice that uses them.
+the same `flagship()`, `small()` and `tiny()` presets, and the training
+settings (`TrainConfig`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 LATENT_CHANNELS = 4
 # the attribute stream: seven 4-channel latent groups, concatenated in the
@@ -33,6 +33,9 @@ class UNetConfig:
     norm_num_groups: int = 32
     transformer_layers: int = 1
     sample_size: int = 64                           # latent H=W
+    # recompute each down/up block's activations in the backward
+    # (torch.utils.checkpoint; the JAX package's nn.remat)
+    remat: bool = True
 
     @property
     def up_block_attn(self) -> Tuple[bool, ...]:
@@ -76,6 +79,8 @@ class DiffusionConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    # std of the noise added to the env latent in training
+    env_noise_aug: float = 0.02
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +126,43 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Loss weights and loop settings: the fields of the JAX package's
+    TrainConfig that the port's trainer reads, with its defaults (except
+    `compute_dtype`).  `validation_every`, `checkpoints_total_limit` and
+    `mesh_axes` come with the slices that read them."""
+    batch_size_per_device: int = 2
+    learning_rate: float = 5e-6
+    optimizer: str = "adamw"                        # the port: adamw only
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0                      # <= 0: no clipping
+    lr_schedule: str = "constant"                   # "constant" | "cosine"
+    lr_warmup_steps: int = 0
+    lr_decay_steps: int = 0                         # cosine horizon
+    lr_end_factor: float = 0.1                      # final lr = lr * this
+    gradient_accumulation_steps: int = 1            # the port: 1 only
+    max_steps: int = 5_000_000
+    checkpoint_every: int = 5000
+    seed: int = 42
+    # loss weights
+    w_img: float = 1.0
+    w_attr: float = 10.0
+    w_contrastive: float = 0.01
+    w_cycle: float = 0.8
+    contrastive_temperature: float = 0.1
+    # f32 master params; compute in this type.  None: bf16 on the card
+    # (its kernels take nothing else; another type raises there), f32 on
+    # the CPU
+    compute_dtype: Optional[str] = None
+    # "float32": grads of the f32 masters; "bfloat16": grads of the
+    # compute-type copies, upcast for the update
+    grad_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class SystemConfig:
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
@@ -129,6 +171,7 @@ class SystemConfig:
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def flagship() -> SystemConfig:
@@ -148,6 +191,7 @@ def small() -> SystemConfig:
             cross_attention_dim=256,
             norm_num_groups=16,
             sample_size=16,
+            remat=False,
         ),
         vae=VAEConfig(
             block_out_channels=(32, 64, 128),
@@ -164,6 +208,8 @@ def small() -> SystemConfig:
                             max_mip_level=2, raster_chunk=256),
         data=DataConfig(resolution=64, texture_res=64,
                         v_pad=4096, t_pad=8192, random_camera=True),
+        train=TrainConfig(batch_size_per_device=8, learning_rate=1e-4,
+                          checkpoint_every=1000),
     )
 
 
@@ -178,6 +224,7 @@ def tiny(latent_size: int = 8) -> SystemConfig:
             cross_attention_dim=32,
             norm_num_groups=8,
             sample_size=latent_size,
+            remat=False,
         ),
         vae=VAEConfig(
             block_out_channels=(16, 32),
@@ -194,4 +241,5 @@ def tiny(latent_size: int = 8) -> SystemConfig:
                             max_mip_level=1, raster_chunk=64),
         data=DataConfig(resolution=16, texture_res=32,
                         v_pad=4096, t_pad=8192, random_camera=True),
+        train=TrainConfig(batch_size_per_device=2),
     )

@@ -1,4 +1,4 @@
-"""Flax parameters -> the port's state dicts.
+"""Flax parameters <-> the port's state dicts.
 
 The port's modules carry the flax module names, so a flax path maps to a
 state-dict key by joining with `.` and renaming the leaf:
@@ -10,7 +10,8 @@ state-dict key by joining with `.` and renaming the leaf:
 
 (the inverse of the layout rules in `unirenderer_tpu/models/surgery.py`).
 Loading is strict: every parameter of the module is filled and every key
-of the file is used; nothing is skipped.
+of the file is used; nothing is skipped.  `flax_from_module` is the other
+direction (a trained module -> flax params for the JAX package).
 """
 
 from __future__ import annotations
@@ -65,3 +66,31 @@ def load_flax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
                              f"{tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
     return len(sd)
+
+
+def _flax_leaf(mod: nn.Module, name: str, t: torch.Tensor):
+    """(flax leaf name, array in the flax layout) of one parameter."""
+    a = t.detach().float().cpu().numpy()
+    if name != "weight":
+        return name, a
+    if isinstance(mod, nn.Embedding):
+        return "embedding", a
+    if a.ndim == 4:
+        return "kernel", a.transpose(2, 3, 1, 0)
+    if a.ndim == 2:
+        return "kernel", a.T
+    if a.ndim == 1:                     # GroupNorm / LayerNorm scale
+        return "scale", a
+    raise ValueError(f"{type(mod).__name__}.weight of rank {a.ndim}")
+
+
+def flax_from_module(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The module's parameters as {flax path joined with '/': f32 array},
+    under `params` (the inverse of `state_dict_from_flax`)."""
+    out: Dict[str, np.ndarray] = {}
+    for mod_name, mod in module.named_modules():
+        for name, t in mod.named_parameters(recurse=False):
+            leaf, a = _flax_leaf(mod, name, t)
+            path = ["params"] + (mod_name.split(".") if mod_name else [])
+            out["/".join(path + [leaf])] = np.ascontiguousarray(a)
+    return out

@@ -16,8 +16,11 @@
 // tile of flash_tile.cuh, one block of 4 warps per (b*h, 64-row query
 // tile), (batch, head) pairs batch-major; Q is scaled by
 // softmax_scale * log2(e) while it is staged (as the TPU's K3 does), so the
-// softmax uses exp2 directly.  No logsumexp is saved: backward comes with
-// the training slice.
+// softmax uses exp2 directly.  Under autograd the wrapper calls
+// `flash_attn_forward_lse`, the same kernel with the tile's kLse flag, which
+// also writes each row's log-sum-exp (f32, (B, H, Sq)) for the backward
+// (flash_attention_bwd.cu); `flash_attn_forward` (serving) writes none and
+// is the kernel it always was.
 //
 // Interface: plain C, no PyTorch headers.  The launcher allocates nothing,
 // launches on the caller's stream and returns cudaGetLastError().
@@ -28,35 +31,63 @@ namespace {
 
 using attn::bf16;
 
-template <int DP>
+template <int DP, bool kLse>
 __global__ void __launch_bounds__(attn::kTileThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int batch,
                  int heads, int sq, int sk, int d, attn::Strides st,
-                 float qscale) {
+                 float qscale, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  attn::flash_tile<DP, false>(smem_raw, q, k, v, o, batch, heads, sq, sk, d,
-                              st, qscale);
+  attn::flash_tile<DP, false, kLse>(smem_raw, q, k, v, o, batch, heads, sq,
+                                    sk, d, st, qscale, lse);
 }
 
-template <int DP>
+template <int DP, bool kLse>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch,
            int heads, int sq, int sk, int d, const attn::Strides& st,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   constexpr int smem = attn::flash_tile_smem_bytes<DP>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_fwd_kernel<DP, kLse>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const float qscale = 1.4426950408889634f / sqrtf((float)d);
   const dim3 grid((sq + attn::kTileM - 1) / attn::kTileM, batch * heads);
-  flash_fwd_kernel<DP><<<grid, attn::kTileThreads, smem, stream>>>(
-      q, k, v, o, batch, heads, sq, sk, d, st, qscale);
+  flash_fwd_kernel<DP, kLse><<<grid, attn::kTileThreads, smem, stream>>>(
+      q, k, v, o, batch, heads, sq, sk, d, st, qscale, lse);
   return (int)cudaGetLastError();
+}
+
+template <bool kLse>
+int forward(const void* q, const void* k, const void* v, void* o, int batch,
+            int heads, int sq, int sk, int d, const long long* strides,
+            float* lse, void* stream) {
+  if (!attn::flash_tile_takes(batch, heads, sq, sk, d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const attn::Strides st = {strides[0], strides[1], strides[2], strides[3],
+                            strides[4], strides[5], strides[6], strides[7],
+                            strides[8], strides[9], strides[10], strides[11]};
+  const bf16* qp = reinterpret_cast<const bf16*>(q);
+  const bf16* kp = reinterpret_cast<const bf16*>(k);
+  const bf16* vp = reinterpret_cast<const bf16*>(v);
+  bf16* op = reinterpret_cast<bf16*>(o);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define K2_CASE(N, DP)                                                      \
+  case N:                                                                   \
+    return launch<DP, kLse>(qp, kp, vp, op, batch, heads, sq, sk, d, st,   \
+                            lse, s);
+  switch ((d + 15) / 16) {
+    K2_CASE(1, 16) K2_CASE(2, 32) K2_CASE(3, 48) K2_CASE(4, 64)
+    K2_CASE(5, 80) K2_CASE(6, 96) K2_CASE(7, 112) K2_CASE(8, 128)
+    K2_CASE(9, 144) K2_CASE(10, 160)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K2_CASE
 }
 
 }  // namespace
@@ -69,30 +100,18 @@ extern "C" {
 int flash_attn_forward(const void* q, const void* k, const void* v, void* o,
                        int batch, int heads, int sq, int sk, int d,
                        const long long* strides, void* stream) {
-  if (!attn::flash_tile_takes(batch, heads, sq, sk, d)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const attn::Strides st = {strides[0], strides[1], strides[2], strides[3],
-                            strides[4], strides[5], strides[6], strides[7],
-                            strides[8], strides[9], strides[10], strides[11]};
-  const bf16* qp = reinterpret_cast<const bf16*>(q);
-  const bf16* kp = reinterpret_cast<const bf16*>(k);
-  const bf16* vp = reinterpret_cast<const bf16*>(v);
-  bf16* op = reinterpret_cast<bf16*>(o);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16) {
-    case 1: return launch<16>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 2: return launch<32>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 3: return launch<48>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 4: return launch<64>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 5: return launch<80>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 6: return launch<96>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 7: return launch<112>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 8: return launch<128>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 9: return launch<144>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    case 10: return launch<160>(qp, kp, vp, op, batch, heads, sq, sk, d, st, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return forward<false>(q, k, v, o, batch, heads, sq, sk, d, strides,
+                        nullptr, stream);
+}
+
+// The same, also writing lse: (B, H, Sq) f32, contiguous, the natural-log
+// log-sum-exp of each row's scaled logits.
+int flash_attn_forward_lse(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int batch, int heads, int sq,
+                           int sk, int d, const long long* strides,
+                           void* stream) {
+  return forward<true>(q, k, v, o, batch, heads, sq, sk, d, strides, lse,
+                       stream);
 }
 
 }  // extern "C"

@@ -19,6 +19,11 @@
 // no scale to Q (the caller pre-scaled it by 1/sqrt(D) in bf16): the f32
 // scores are multiplied by log2(e) instead.  K2 folds
 // softmax_scale * log2(e) into Q while it is staged.
+//
+// kLse (K2 under autograd) also writes each row's log-sum-exp of the
+// natural-unit logits, f32, to lse[(b * heads + h) * sq + row]: the
+// statistic the backward (flash_attention_bwd.cu) recomputes P from.
+// Without it (serving, K2s) the tile is unchanged.
 
 #pragma once
 
@@ -44,12 +49,12 @@ struct Strides {                  // element strides (batch, seq, head)
       o_ss, o_sh;
 };
 
-template <int DP, bool kSplash>
+template <int DP, bool kSplash, bool kLse = false>
 __device__ __forceinline__ void flash_tile(
     unsigned char* smem_raw, const bf16* __restrict__ q,
     const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int batch, int heads, int sq, int sk, int d,
-    const Strides& st, float qscale) {
+    const Strides& st, float qscale, float* __restrict__ lse = nullptr) {
   constexpr int LDQ = DP + 8;     // smem row pitch of Q and K (elements)
   constexpr int LDV = kTileN + 8; // smem row pitch of V^T
   constexpr int VPR = DP / 8;     // 16-byte vectors per padded row
@@ -218,6 +223,13 @@ __device__ __forceinline__ void flash_tile(
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int row0 = q0 + rw + g, row1 = row0 + 8;
+  if (kLse && t4 == 0) {
+    // m_run and l0/l1 are in log2 units of the log2(e)-scaled logits
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lrow = lse + (long long)(b * heads + h) * sq;
+    if (row0 < sq) lrow[row0] = (m_run[0] + log2f(l0)) * kLn2;
+    if (row1 < sq) lrow[row1] = (m_run[1] + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int col = n * 8 + t4 * 2;

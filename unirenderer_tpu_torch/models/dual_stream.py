@@ -10,7 +10,10 @@ residuals do not change across denoise steps) and
 rendering: `unet_raw_taps` (the UNet's encoder half, once per request: the
 image latent is clean at t_img = 0 and the decoder reads the taps before
 any residual is added) and `attr_streams_with_unet_taps` (encoder and
-decoder, once per step).
+decoder, once per step).  Training: `forward`, the full model (the JAX
+`__call__`), optionally without the decoder; with `UNetConfig.remat`
+every down and up block recomputes its activations in the backward
+(`torch.utils.checkpoint`, where the JAX package wraps them in `nn.remat`).
 
 Submodule names are the flax names (`unet`, `controlnet`, `controldec`,
 `down_0`, ...).
@@ -22,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unirenderer_tpu_torch.core.config import UNetConfig
 from unirenderer_tpu_torch.models.blocks import DownBlock, MidBlock, UpBlock
@@ -56,6 +60,13 @@ class _Trunk(nn.Module):
         return self.time_embedding(
             timestep_embedding(t, self.cfg.block_out_channels[0]))
 
+    def _block(self, block: nn.Module, *args):
+        """A down or up block, under activation checkpointing when the
+        config asks for remat and a backward will follow."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
 
 class _EncoderHalf(_Trunk):
     """conv_in and the down + mid blocks shared by the UNet and the
@@ -82,7 +93,7 @@ class _EncoderHalf(_Trunk):
         x = self.conv_in(x.to(self.conv_in.weight.dtype))
         taps = [x]
         for i in range(len(self.cfg.block_out_channels)):
-            x, t = getattr(self, f"down_{i}")(x, temb, ctx)
+            x, t = self._block(getattr(self, f"down_{i}"), x, temb, ctx)
             taps.extend(t)
         return tuple(taps), self.mid(x, temb, ctx)
 
@@ -120,7 +131,8 @@ class _DecoderHalf:
         for i in range(len(self.cfg.block_out_channels)):
             blk_skips = tuple(skips[-n_skip:])
             del skips[-n_skip:]
-            x = getattr(self, f"up_{i}")(x, blk_skips, temb, ctx)
+            x = self._block(getattr(self, f"up_{i}"), x, blk_skips, temb,
+                            ctx)
         return self.conv_out(self.conv_norm_out(x)).float()
 
 
@@ -137,14 +149,25 @@ class ImageUNet(_EncoderHalf, _DecoderHalf):
     def forward(self, sample: torch.Tensor, t_img: torch.Tensor,
                 ctx: torch.Tensor, down_residuals: Optional[Taps] = None,
                 mid_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.forward_with_taps(sample, t_img, ctx, down_residuals,
+                                      mid_residual)[0]
+
+    def forward_with_taps(self, sample: torch.Tensor, t_img: torch.Tensor,
+                          ctx: torch.Tensor,
+                          down_residuals: Optional[Taps] = None,
+                          mid_residual: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, Taps, torch.Tensor]:
+        """-> (img_pred, raw down taps, raw mid output): the taps before
+        any residual is added, which the attribute decoder reads."""
         temb = self.time_embed(t_img)
-        down_taps, x = self.encode(sample, temb, ctx)
+        raw_down, raw_mid = self.encode(sample, temb, ctx)
+        down_taps, x = raw_down, raw_mid
         if down_residuals is not None:
             down_taps = tuple(d + r.to(d.dtype)
                               for d, r in zip(down_taps, down_residuals))
         if mid_residual is not None:
             x = x + mid_residual.to(x.dtype)
-        return self.decode(x, down_taps, temb, ctx)
+        return self.decode(x, down_taps, temb, ctx), raw_down, raw_mid
 
 
 class AttrEncoder(_EncoderHalf):
@@ -207,6 +230,24 @@ class DualStreamModel(nn.Module):
         self.unet = ImageUNet(cfg)
         self.controlnet = AttrEncoder(cfg)
         self.controldec = AttrDecoder(cfg)
+
+    def forward(self, img_latent: torch.Tensor, attr_latent: torch.Tensor,
+                t_img: torch.Tensor, t_attr: torch.Tensor, ctx: torch.Tensor,
+                run_decoder: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Both streams in one call (the JAX `DualStreamModel.__call__`):
+        the attribute encoder's residuals into the UNet, the UNet's raw
+        taps into the attribute decoder -> (img_pred (B, H, W, 4),
+        attr_pred (B, H, W, 28) or None without the decoder), f32."""
+        ctx = ctx.to(self.unet.conv_in.weight.dtype)
+        ctrl_down, ctrl_mid, enc_down, enc_mid = self.controlnet(
+            attr_latent, t_attr, ctx)
+        img_pred, unet_down, unet_mid = self.unet.forward_with_taps(
+            img_latent, t_img, ctx, ctrl_down, ctrl_mid)
+        if not run_decoder:
+            return img_pred, None
+        return img_pred, self.controldec(enc_mid, enc_down, t_attr, ctx,
+                                         unet_down, unet_mid)
 
     def encode_attr(self, attr_latent: torch.Tensor, t_attr: torch.Tensor,
                     ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:

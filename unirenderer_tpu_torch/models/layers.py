@@ -30,6 +30,13 @@ from unirenderer_tpu_torch.ops.splash_attention import splash_attention
 # UNIRENDER_ATTN values the port takes: "auto" (the default), "flash", and
 # the two routes for tileable self-attention
 ATTN_ROUTES = ("auto", "flash", "splash", "unet_flash")
+# the routes without a backward, and why
+NO_BACKWARD = {
+    "splash": "the backward of K2s (the library splash dq/dkv kernels) is "
+              "still to be ported",
+    "unet_flash": "K3 is forward-only in the JAX package too (never "
+                  "selected for training there)",
+}
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -161,11 +168,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX package's `maybe_flash_attention` does: "splash" sends tileable
     self-attention (`ops.flash_attention.tileable`) to K2s, "unet_flash" to
     K3; everything else (cross-attention, the untileable levels, and every
-    shape under "auto" / "flash" / unset) goes to K2."""
+    shape under "auto" / "flash" / unset) goes to K2.  Under autograd only
+    K2 has a backward: the two routes raise there rather than fall back."""
     which = os.environ.get("UNIRENDER_ATTN", "auto")
     if which not in ATTN_ROUTES:
         raise ValueError(f"UNIRENDER_ATTN={which!r}: the port takes "
                          f"{', '.join(ATTN_ROUTES)}")
+    if which in NO_BACKWARD and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(f"UNIRENDER_ATTN={which} has no backward: "
+                           f"{NO_BACKWARD[which]}; train with "
+                           f"UNIRENDER_ATTN=flash (or auto)")
     if is_self and which in ("splash", "unet_flash") and tileable(
             q.shape[1], k.shape[1], q.shape[-1]):
         route = splash_attention if which == "splash" else \

@@ -25,8 +25,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("groupnorm", "flash_attention", "splash_attention",
-           "attn_kernel", "rasterize")
+SOURCES = ("groupnorm", "flash_attention", "flash_attention_bwd",
+           "splash_attention", "attn_kernel", "rasterize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

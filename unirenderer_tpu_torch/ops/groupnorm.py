@@ -4,7 +4,12 @@ Counterpart of `unirenderer_tpu/ops/groupnorm.py` (`fused_groupnorm_silu`,
 whose Pallas kernel is `_kernel` via `_fused_fwd`).  On a CUDA tensor the
 wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (bf16 only)
 and raises on anything it does not take; on a CPU tensor it runs the plain
-PyTorch version below.  Forward only: serving needs no gradient.
+PyTorch version below.
+
+Under autograd the call is a `torch.autograd.Function` whose backward is
+autograd through the plain version, recomputed from the saved x, scale
+and bias: exactly the JAX package's `_vjp_bwd`.  The TPU has no backward
+kernel, and neither does the port.
 """
 
 from __future__ import annotations
@@ -78,17 +83,50 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
-                         bias: torch.Tensor, groups: int, eps: float,
-                         silu: bool) -> torch.Tensor:
-    """GroupNorm over x (B, ..., C) with per-channel affine and optional
-    SiLU; the kernel on a CUDA tensor, the plain version on a CPU one."""
+def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             groups: int, eps: float, silu: bool) -> torch.Tensor:
     fused_groupnorm_silu.seen.add((tuple(x.shape), groups, eps, bool(silu)))
     if x.device.type == "cpu":
         return groupnorm_silu_reference(x, scale, bias, groups, eps, silu)
     if x.device.type != "cuda":
         raise ValueError(f"no groupnorm kernel for device {x.device}")
     return _launch(x, scale, bias, groups, eps, silu)
+
+
+class _FusedGroupNormSiLU(torch.autograd.Function):
+    """K1 under autograd: the kernel (or the plain version) forward; the
+    backward differentiates the plain version, recomputed from the saved
+    inputs (the JAX package's `_vjp_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (groups, eps, silu)
+        return _forward(x, scale, bias, groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = groupnorm_silu_reference(*inputs, *ctx.args)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wrt, dy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None, None)
+
+
+def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, groups: int, eps: float,
+                         silu: bool) -> torch.Tensor:
+    """GroupNorm over x (B, ..., C) with per-channel affine and optional
+    SiLU; the kernel on a CUDA tensor, the plain version on a CPU one;
+    differentiable when grad is enabled and an input requires it."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _FusedGroupNormSiLU.apply(x, scale, bias, groups, eps, silu)
+    return _forward(x, scale, bias, groups, eps, silu)
 
 
 # kernel launches so far (the CUDA branch only), and every

@@ -431,30 +431,34 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
 class _KernelCalls:
     """The calls the two model kernels get, worked out from the config:
     GroupNorm (x shape, groups, eps, silu) and attention (q shape, k
-    shape), in the form the wrappers record in `.seen`, with a count of
-    each attention signature."""
+    shape), in the form the wrappers record in `.seen`, each counted with
+    its multiplicity.  `block_runs` counts the down and up blocks that
+    many times (activation checkpointing runs their forward twice)."""
 
     def __init__(self, cfg: SystemConfig, image_size: int):
         self.cfg, self.image_size = cfg, image_size
         self.lat = image_size // cfg.vae.downscale
-        self.gn, self.attn = set(), Counter()
+        self.gn, self.attn = Counter(), Counter()
+        self._runs = 1
 
     def _resnet(self, n, r, cin, cout, groups):
-        self.gn.add(((n, r, r, cin), groups, 1e-5, True))
-        self.gn.add(((n, r, r, cout), groups, 1e-5, True))
+        self.gn[((n, r, r, cin), groups, 1e-5, True)] += self._runs
+        self.gn[((n, r, r, cout), groups, 1e-5, True)] += self._runs
 
     def _transformer(self, n, r, ch):
         u = self.cfg.unet
-        self.gn.add(((n, r, r, ch), u.norm_num_groups, 1e-6, False))
+        self.gn[((n, r, r, ch), u.norm_num_groups, 1e-6, False)] += self._runs
         q = (n, r * r, u.num_heads, ch // u.num_heads)
-        self.attn[(q, q)] += 1
-        self.attn[(q, (n, self.cfg.text.max_length) + q[2:])] += 1
+        calls = u.transformer_layers * self._runs
+        self.attn[(q, q)] += calls
+        self.attn[(q, (n, self.cfg.text.max_length) + q[2:])] += calls
 
-    def encoder_half(self, n):
+    def encoder_half(self, n, block_runs: int = 1):
         """conv_in, down and mid blocks (the UNet's and the attribute
         encoder's) at batch n."""
         u = self.cfg.unet
         r, prev = self.lat, u.block_out_channels[0]
+        self._runs = block_runs
         for i, ch in enumerate(u.block_out_channels):
             for _ in range(u.layers_per_block):
                 self._resnet(n, r, prev, ch, u.norm_num_groups)
@@ -463,17 +467,19 @@ class _KernelCalls:
                     self._transformer(n, r, ch)
             if i != len(u.block_out_channels) - 1:
                 r //= 2
+        self._runs = 1
         self._resnet(n, r, prev, prev, u.norm_num_groups)
         self._transformer(n, r, prev)
         self._resnet(n, r, prev, prev, u.norm_num_groups)
 
-    def decoder_half(self, n):
+    def decoder_half(self, n, block_runs: int = 1):
         """Up blocks and conv_norm_out (the UNet's and the attribute
         decoder's) at batch n."""
         u = self.cfg.unet
         skips = down_tap_channels(u)
         r = self.lat // 2 ** (len(u.block_out_channels) - 1)
         prev = u.block_out_channels[-1]
+        self._runs = block_runs
         for i, ch in enumerate(reversed(u.block_out_channels)):
             for _ in range(u.layers_per_block + 1):
                 self._resnet(n, r, prev + skips.pop(), ch, u.norm_num_groups)
@@ -482,8 +488,9 @@ class _KernelCalls:
                     self._transformer(n, r, ch)
             if i != len(u.block_out_channels) - 1:
                 r *= 2
-        self.gn.add(((n, self.lat, self.lat, u.block_out_channels[0]),
-                     u.norm_num_groups, 1e-5, True))
+        self._runs = 1
+        self.gn[((n, self.lat, self.lat, u.block_out_channels[0]),
+                 u.norm_num_groups, 1e-5, True)] += 1
 
     def vae_encoder(self, images):
         """The VAE encoder over a stack of `images`, in VAE_CHUNK chunks."""
@@ -497,7 +504,7 @@ class _KernelCalls:
                 if i != len(vc.block_out_channels) - 1:
                     r //= 2
             self._vae_mid(n, r, prev)
-            self.gn.add(((n, r, r, prev), g, 1e-6, True))
+            self.gn[((n, r, r, prev), g, 1e-6, True)] += 1
 
     def vae_decoder(self, latents):
         """The VAE decoder over a stack of `latents`, in VAE_CHUNK chunks."""
@@ -511,13 +518,13 @@ class _KernelCalls:
                     prev = ch
                 if i != len(vc.block_out_channels) - 1:
                     r *= 2
-            self.gn.add(((n, self.image_size, self.image_size, prev), g,
-                         1e-6, True))
+            self.gn[((n, self.image_size, self.image_size, prev), g,
+                     1e-6, True)] += 1
 
     def _vae_mid(self, n, r, ch):
         g = self.cfg.vae.norm_num_groups
         self._resnet(n, r, ch, ch, g)
-        self.gn.add(((n, r, r, ch), g, 1e-6, False))
+        self.gn[((n, r, r, ch), g, 1e-6, False)] += 1
         self._resnet(n, r, ch, ch, g)
 
 
@@ -539,7 +546,7 @@ def kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
     calls.decoder_half(batch)
     calls.vae_encoder(batch * (len(_MAP_NAMES) + int(material_image_encode)))
     calls.vae_decoder(batch)
-    return calls.gn, set(calls.attn)
+    return set(calls.gn), set(calls.attn)
 
 
 def inverse_kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
@@ -554,7 +561,7 @@ def inverse_kernel_cases(cfg: SystemConfig, batch: int, image_size: int,
     calls.vae_encoder(2 * batch)    # image and mask
     groups = len(ATTR_GROUPS) - int(material_readout == "latent")
     calls.vae_decoder(groups * n)
-    return calls.gn, set(calls.attn)
+    return set(calls.gn), set(calls.attn)
 
 
 def forward_self_attention_calls(cfg: SystemConfig, batch: int,
