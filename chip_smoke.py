@@ -8,7 +8,8 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
 phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
-     and the -Xptxas -v report (registers, shared memory, spills)
+     and the -Xptxas -v report (registers, shared memory, spills, and any
+     note that ptxas serialized the wgmma instructions)
   2  kernels against their plain PyTorch versions in bf16, at every call
      signature the flagship forward path (batch 2) and the flagship inverse
      path (batch 2 x ensemble 5) give them, plus a ragged case each; the
@@ -21,9 +22,13 @@ phase 7):
      at every attention shape of the flagship training step (batch 2) plus
      a ragged case each: dQ, dK, dV each within 2^-6 * max|plain| of the
      plain backward in f32 on the same bf16 inputs and the kernel's own O
-     and log-sum-exp, that log-sum-exp within 2^-7 of the plain one, and
-     the forward's output with the log-sum-exp bit-identical to the serving
-     launch's; library = autograd of F.scaled_dot_product_attention
+     and log-sum-exp, that log-sum-exp within 2^-14 of the plain one of
+     its own bf16-staged Q, the forward's output with the log-sum-exp
+     bit-identical to the serving launch's, and a second backward run on
+     the same inputs (dQ's f32 sums are atomic adds in no fixed order)
+     within the tolerance of the first; library = autograd of
+     F.scaled_dot_product_attention; every case prints its ratio to the
+     library call
   3  the main path at flagship width: random bf16 weights made on the card
      from a seed, 2 requests (one batch of 2) through
      `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
@@ -131,6 +136,7 @@ TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
 ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10"
+PAD_CYCLES = 1_000_000           # ~0.5 ms of spin before each timed launch
 
 
 def log(msg: str) -> None:
@@ -156,7 +162,10 @@ def nvidia_smi() -> str:
 
 class Timer:
     """Mean device time of fn() over reps, each launch after an L2 flush
-    (the main path finds its inputs cold), from CUDA events."""
+    (the main path finds its inputs cold), from CUDA events.  A spin kernel
+    of PAD_CYCLES keeps the card busy while the host enqueues fn()'s
+    launches, so the start event does not count the host's own time in the
+    wrappers (Python, ctypes, PyTorch's dispatch) as device time."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -174,6 +183,7 @@ class Timer:
         total = 0.0
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(PAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -296,15 +306,22 @@ def attn_bwd_case(torch, F, timer, gen, case):
     lse_rounding = (lse - attention_lse_reference(q, k, v)[1]
                     ).abs().max().item()
     got = flash_attention_backward(q, k, v, o, lse, do)
+    # dQ's f32 sums are atomic adds in no fixed order (and dK, dV's where
+    # the kernel splits the query tiles): a second run on the same inputs
+    # may differ in the last bits, and must stay well inside the tolerance
+    again = flash_attention_backward(q, k, v, o, lse, do)
     want = attention_backward_reference(q, k, v, o, lse, do, torch.float32)
     torch.cuda.synchronize()
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         errs[name] = ((g.float() - w).abs().max().item(),
                       BWD_REL * w.abs().max().item())
-    del got, want
+    rerun = max((g.float() - a.float()).abs().max().item()
+                for g, a in zip(got, again))
+    del got, again, want
     ok = (same_o and lse_err <= LSE_ABS
-          and all(e <= t for e, t in errs.values()))
+          and all(e <= t for e, t in errs.values())
+          and rerun <= min(t for _, t in errs.values()))
     ms = timer(lambda: flash_attention_backward(q, k, v, o, lse, do))
     plain_ms = timer(lambda: attention_backward_reference(q, k, v, o, lse,
                                                           do))
@@ -323,7 +340,7 @@ def attn_bwd_case(torch, F, timer, gen, case):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(kernel="flash_attention_backward",
                 shape=[list(qs), list(ks)], errs=errs, lse_err=lse_err,
-                lse_tol=LSE_ABS, lse_rounding=lse_rounding,
+                lse_tol=LSE_ABS, lse_rounding=lse_rounding, rerun_diff=rerun,
                 forward_bit_identical=same_o, ok=ok,
                 max_abs_err=max(e for e, _ in errs.values()),
                 tol=min(t for _, t in errs.values()), ms=ms,
@@ -362,12 +379,15 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
                         for n, (e, t) in r["errs"].items())
                + f" lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} (bf16 Q "
                f"{r['lse_rounding']:.3g}) bit-identical "
-               f"fwd {int(r['forward_bit_identical'])} "
+               f"fwd {int(r['forward_bit_identical'])} rerun diff "
+               f"{r['rerun_diff']:.3g}/{r['tol']:.3g} "
                if "errs" in r else "")
             + f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
             f"{'ok' if ok else 'FAIL'}  kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            + (f"ratio {r['ms'] / r['library_ms']:.2f}  "
+               if r.get("library_ms") else "")
+            + f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
         torch.cuda.empty_cache()
     bad = [r for r in results if not case_ok(r)]
     check(not bad, f"{len(bad)} kernel case(s) out of tolerance")
@@ -489,8 +509,8 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
     ("K1 groupnorm_silu", ("gn_stats_kernel", "gn_finalize_kernel",
                            "gn_apply_kernel")),
     ("K2 flash_attention", ("flash_fwd_kernel",)),
-    ("K2 bwd flash_attention_backward", ("dkv_kernel<", "dq_kernel<",
-                                         "delta_kernel")),
+    ("K2 bwd flash_attention_backward", ("bwd_prep_kernel", "bwd_kernel<",
+                                         "dq_convert_kernel")),
     ("K2s splash_attention", ("splash_fwd_kernel",)),
     ("K3 attn_kernel", ("unet_flash_kernel",)),
     ("convolution", ("fprop", "convolve", "implicit_gemm", "winograd")),
@@ -1345,13 +1365,17 @@ def main(argv=None) -> int:
             built = _build.build()
             log(f"phase 1 build: {time.perf_counter() - t:.1f} s wall "
                 f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+            record["build"] = {}
             for b in built.values():
                 log(f"  {b.name}: {b.seconds:.1f} s -> {b.path.name}")
-                for line in b.log.splitlines():
-                    if ("entry function" in line or "registers" in line
-                            or "spill" in line):
-                        print(f"    {line.strip()}", flush=True)
-            record["build"] = {b.name: b.seconds for b in built.values()}
+                report = [line.strip() for line in b.log.splitlines()
+                          if "entry function" in line or "registers" in line
+                          or "spill" in line or "Performance Loss" in line
+                          or "injected" in line]
+                for line in report:
+                    print(f"    {line}", flush=True)
+                record["build"][b.name] = dict(seconds=b.seconds,
+                                               ptxas=report)
 
         cfg = config.flagship()
         gn_cases, attn_cases = set(), set()

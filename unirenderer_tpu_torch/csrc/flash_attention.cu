@@ -12,15 +12,24 @@
 // against 4*S*D*2 bytes of traffic, ~1000 flop/byte, far above the card's
 // ~295 flop/byte ridge.  The score matrix is never written to memory.
 //
-// Design (first, simple version: no TMA, no wgmma, no pipelining): the
-// tile of flash_tile.cuh, one block of 4 warps per (b*h, 64-row query
-// tile), (batch, head) pairs batch-major; Q is scaled by
-// softmax_scale * log2(e) while it is staged (as the TPU's K3 does), so the
-// softmax uses exp2 directly.  Under autograd the wrapper calls
-// `flash_attn_forward_lse`, the same kernel with the tile's kLse flag, which
-// also writes each row's log-sum-exp (f32, (B, H, Sq)) for the backward
-// (flash_attention_bwd.cu); `flash_attn_forward` (serving) writes none and
-// is the kernel it always was.
+// Design: the tile of flash_tile.cuh (128 query rows a block in two
+// warpgroups, K/V through a 4-stage cp.async ring in wgmma's core-matrix
+// layout, wgmma.mma_async for S = Q K^T and O += P V with the softmax of a
+// tile overlapping the P V of the one before), (batch, head) pairs
+// batch-major; Q is staged as bf16(q * softmax_scale * log2(e)) (as the
+// TPU's K3 does), so the softmax uses exp2 directly.  Under autograd the
+// wrapper calls `flash_attn_forward_lse`, the same kernel with the tile's
+// kLse flag, which also writes each row's log-sum-exp (f32, (B, H, Sq))
+// for the backward (flash_attention_bwd.cu); `flash_attn_forward`
+// (serving) writes none and computes the same O.
+//
+// What the tile does about its bound: each K/V tile is fetched once per
+// 128 rows and read by the tensor cores once per 64 (a warpgroup); the
+// products run asynchronously beside the softmax.  At D = 40 the products
+// need ~190 flops a score against one exp2 (MUFU, 16 a clock per SM) and
+// ~6 FP32 instructions, so the exponentials, not the tensor cores, set the
+// pace; the tile still runs at ~3x the MUFU time (latency between the
+// dependent steps of a tile), which is what holds it back now.
 //
 // Interface: plain C, no PyTorch headers.  The launcher allocates nothing,
 // launches on the caller's stream and returns cudaGetLastError().
@@ -32,7 +41,8 @@ namespace {
 using attn::bf16;
 
 template <int DP, bool kLse>
-__global__ void __launch_bounds__(attn::kTileThreads)
+__global__ void __launch_bounds__(attn::kTileThreads,
+                                  attn::FlashTile<DP>::kMinBlocks)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int batch,
                  int heads, int sq, int sk, int d, attn::Strides st,
@@ -46,7 +56,8 @@ template <int DP, bool kLse>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch,
            int heads, int sq, int sk, int d, const attn::Strides& st,
            float* lse, cudaStream_t stream) {
-  constexpr int smem = attn::flash_tile_smem_bytes<DP>();
+  using T = attn::FlashTile<DP>;
+  constexpr int smem = T::kSmemBytes;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(

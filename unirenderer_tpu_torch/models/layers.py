@@ -32,8 +32,9 @@ from unirenderer_tpu_torch.ops.splash_attention import splash_attention
 ATTN_ROUTES = ("auto", "flash", "splash", "unet_flash")
 # the routes without a backward, and why
 NO_BACKWARD = {
-    "splash": "the backward of K2s (the library splash dq/dkv kernels) is "
-              "still to be ported",
+    "splash": "the JAX splash route has no backward either "
+              "(`_splash_kernel` gives no backward block sizes, so "
+              "jax.grad raises)",
     "unet_flash": "K3 is forward-only in the JAX package too (never "
                   "selected for training there)",
 }

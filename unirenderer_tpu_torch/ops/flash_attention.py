@@ -125,7 +125,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attn_backward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn_backward.argtypes = [p] * 10 + [i] * 5 + [p, p]
+        lib.flash_attn_backward.argtypes = [p] * 13 + [i] * 5 + [p, p]
         lib.flash_attn_backward.restype = ctypes.c_int
     return lib
 
@@ -164,12 +164,17 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, sk, h, d
 
 
+def prescale_factor(dtype: torch.dtype, factor: float) -> float:
+    """`factor` rounded to `dtype`, as a host number."""
+    return torch.tensor(factor, dtype=dtype).item()
+
+
 def prescale_q(q: torch.Tensor, factor: float) -> torch.Tensor:
     """q * factor with the factor rounded to q's type, the product rounded
     to q's type (JAX's `q * factor` with a weakly typed or q-typed factor),
     as the splash and unet_flash routes pre-scale Q.  The rounded factor
     is a host number: no copy to the device."""
-    return q * torch.tensor(factor, dtype=q.dtype).item()
+    return q * prescale_factor(q.dtype, factor)
 
 
 def packed_strides(*tensors: torch.Tensor):
@@ -227,13 +232,19 @@ def _launch_backward(q, k, v, o, lse, do):
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # workspaces: Delta, Q staged as the forward staged it, and the f32
+    # sums of dQ (and of dK, dV when the kernel splits the query tiles)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, sq), **f32)
+    qs = torch.empty((b * h, sq, d), dtype=q.dtype, device=q.device)
+    dq_acc = torch.empty((b * h, sq, d), **f32)
+    dkv_acc = torch.empty((2, b * h, sk, d), **f32)
     strides = packed_strides(q, k, v, o, do, dq, dk, dv)
     rc = _bwd_lib().flash_attn_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b, h, sq, sk, d,
-        ctypes.addressof(strides),
+        dv.data_ptr(), delta.data_ptr(), qs.data_ptr(), dq_acc.data_ptr(),
+        dkv_acc.data_ptr(), b, h, sq, sk, d, ctypes.addressof(strides),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
@@ -293,7 +304,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 # log-sum-exp), and every (q shape, k shape) the wrapper has been called with
 flash_attention.launches = 0
 flash_attention.seen = set()
-# backward kernel launches (one per call: the three kernels of
+# backward kernel launches (one per call: the kernels of
 # csrc/flash_attention_bwd.cu) and the (q shape, k shape) of every call
 flash_attention_backward.launches = 0
 flash_attention_backward.seen = set()

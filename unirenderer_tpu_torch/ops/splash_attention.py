@@ -5,11 +5,13 @@ Counterpart of `unirenderer_tpu/ops/flash_attention.py`
 `tpu_splash_attention` (the library Pallas TPU splash kernel, a `FullMask`
 per head, a grid over heads with `vmap` over the batch), which the TPU ran
 under `UNIRENDER_ATTN=splash` for the tileable self-attention shapes.  As
-there, Q is pre-scaled by 1/sqrt(D) and rounded to Q's type before the
-kernel, which applies no scale of its own.  On a CUDA tensor the wrapper
-launches the hand-written kernel of `csrc/splash_attention.cu` (bf16, a
-head-major grid) and raises on anything it does not take, non-tileable
-shapes included; on a CPU tensor it runs the plain version below.
+there, Q is pre-scaled by 1/sqrt(D) and rounded to Q's type, and nothing
+else scales it.  On a CUDA tensor the wrapper launches the hand-written
+kernel of `csrc/splash_attention.cu` (bf16, a head-major grid), which
+takes the factor rounded to bf16 and applies it to Q while it stages Q
+(the same bits as `prescale_q`), and raises on anything it does not take,
+non-tileable shapes included; on a CPU tensor it runs the plain version
+below.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from unirenderer_tpu_torch.ops import _build
 from unirenderer_tpu_torch.ops.flash_attention import (
-    check_operands, packed_strides, prescale_q, tileable,
+    check_operands, packed_strides, prescale_factor, prescale_q, tileable,
 )
 
 MAX_HEAD_DIM = 128
@@ -46,7 +48,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("splash_attention")
     if lib.splash_attn_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.splash_attn_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+        lib.splash_attn_forward.argtypes = [p, p, p, p, i, i, i, i, i, p,
+                                            ctypes.c_float, p]
         lib.splash_attn_forward.restype = ctypes.c_int
     return lib
 
@@ -54,12 +57,12 @@ def _lib() -> ctypes.CDLL:
 def _launch(q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor) -> torch.Tensor:
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
-    qs = prescale_q(q, 1.0 / math.sqrt(d))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = packed_strides(qs, k, v, o)
+    strides = packed_strides(q, k, v, o)
     rc = _lib().splash_attn_forward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, h, sq, sk, d, ctypes.addressof(strides),
+        prescale_factor(q.dtype, 1.0 / math.sqrt(d)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"splash attention launch failed: CUDA error {rc}")
