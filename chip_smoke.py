@@ -12,13 +12,18 @@ phase 7):
      note that ptxas serialized the wgmma instructions)
   2  kernels against their plain PyTorch versions in bf16, at every call
      signature the flagship forward path (batch 2) and the flagship inverse
-     path (batch 2 x ensemble 5) give them, plus a ragged case each; the
+     path (batch 2 x ensemble 5) give them, plus a ragged case each (K1
+     with the model's bf16 scale and bias, and with f32 ones at the ragged
+     and headline cases; every K1 case run twice, the same bits); the
      splash (K2s) and unet_flash (K3) routes at every tileable
-     self-attention shape of both paths, K3 also without the running max
-     (bounded logits) and unpipelined; time of kernel, plain version and
-     one PyTorch library call (F.group_norm + F.silu,
-     F.scaled_dot_product_attention: timed here as yardsticks, never called
-     by the port), and each case's bound; the attention backward (K2 bwd)
+     self-attention shape of both paths, K3 under all four running-max /
+     pipelined combinations (bounded logits) and at a ragged shape; time
+     of kernel, plain version and one PyTorch
+     library call (F.group_norm + F.silu, F.scaled_dot_product_attention:
+     timed here as yardsticks, never called by the port), the timer's own
+     floor, and each case's bound (for the forward attention kernels the
+     largest of tensor-core operations, bytes and one exp2 a score on the
+     special-function unit, each printed); the attention backward (K2 bwd)
      at every attention shape of the flagship training step (batch 2) plus
      a ragged case each: dQ, dK, dV each within 2^-6 * max|plain| of the
      plain backward in f32 on the same bf16 inputs and the kernel's own O
@@ -33,7 +38,7 @@ phase 7):
      from a seed, 2 requests (one batch of 2) through
      `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
      shape, finiteness, that both kernels ran and that every call they got
-     was checked in phase 2
+     was checked in phase 2 (with --profile: one K1 device kernel a call)
   4  the repo's trained small() weights through the flax converter onto the
      card, every key loaded (the attribute decoder's too): one forward and
      one inverse model evaluation against the same weights in f32 on the
@@ -67,7 +72,9 @@ phase 7):
      forward request under UNIRENDER_ATTN=splash and one under
      =unet_flash: the route's launches equal the tileable self-attention
      calls worked out from the config, and the image is within 0.05 *
-     max|ref| (phase 4's bf16 model rule) of the default route's
+     max|ref| (phase 4's bf16 model rule) of the default route's (with
+     --profile: the warm unet_flash request profiled beside the default
+     one, one K3 device kernel a call and no kernel beside it)
   9  training at small(): the trained r05 weights loaded strictly into a
      Trainer on the card (bf16) and one on the CPU (f32); one step's
      gradients from the same batch and draws, an inverse and a forward
@@ -90,7 +97,8 @@ Any failure exits non-zero.  The last line is
 a line {"kernels": [...]}.  --out DIR also writes every measured case to
 DIR/chip_smoke.json; --profile adds a torch.profiler breakdown by kernel
 class of one flagship forward request (phase 3), one flagship inverse
-request (phase 8) and one warm flagship inverse train step (phase 10).
+request and one forward request under each of the default and unet_flash
+routes (phase 8), and one warm flagship inverse train step (phase 10).
 """
 
 from __future__ import annotations
@@ -112,6 +120,7 @@ SMALL_MODEL_REL = 0.05           # bf16 small() model vs f32, rel. to max|ref|
 SMALL_RENDER_MEAN_ABS = 0.1      # bf16 vs f32 forward render, mean |diff|
 INVERSE_ENSEMBLE = 5             # the flagship recipe (SamplerConfig)
 FP32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+MUFU_EXP2_PER_CLOCK = 16         # exp2 results per clock per SM (sm_90)
 RAST_TILE = 16                   # csrc/rasterize.cu's tile side
 RAST_TEST_FLOPS = 12             # 3 edge functions, 2 mul + 2 add each
 DUAL_NPZ = "artifacts/r05/dual_small.npz"
@@ -137,6 +146,7 @@ TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
 ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10"
 PAD_CYCLES = 1_000_000           # ~0.5 ms of spin before each timed launch
+GN_HEADLINE = ((2, 64, 64, 320), 32, 1e-5, True)   # K1's headline call
 
 
 def log(msg: str) -> None:
@@ -199,22 +209,31 @@ class Timer:
 # ---------------------------------------------------------------------------
 
 
-def gn_case(torch, F, timer, gen, case):
+def gn_case(torch, F, timer, gen, case, param_dtype="bfloat16"):
+    """K1 at one call signature with scale and bias in `param_dtype` (the
+    model's modules pass bf16; the trainer's f32 path and the CPU pass
+    f32): error against the plain version on the same inputs, a second run
+    that must give the same bits, and the times."""
     from unirenderer_tpu_torch.ops.groupnorm import (
         fused_groupnorm_silu, groupnorm_silu_reference,
     )
     shape, groups, eps, silu = case
     c = shape[-1]
+    pdt = getattr(torch, param_dtype)
     x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
          ).bfloat16()
-    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    scale = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+             ).to(pdt)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(pdt)
     y = fused_groupnorm_silu(x, scale, bias, groups, eps, silu)
+    again = fused_groupnorm_silu(x, scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()          # a fault here is the kernel's
     ref = groupnorm_silu_reference(x.float(), scale, bias, groups, eps, silu)
     torch.cuda.synchronize()
     err = (y.float() - ref).abs().max().item()
     tol = CARD_REL * ref.abs().max().item()
-    del ref, y
+    rerun_equal = bool(torch.equal(y, again))
+    del ref, y, again
     xc = x.permute(0, 3, 1, 2)
     w16, b16 = scale.bfloat16(), bias.bfloat16()
 
@@ -227,12 +246,34 @@ def gn_case(torch, F, timer, gen, case):
                                                       eps, silu))
     library_ms = timer(library)
     nbytes = x.numel() * 2
-    bound_ms = (2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+    bound_ms = ((2 * nbytes + 2 * c * scale.element_size())
+                / HBM_BYTES_PER_S * 1e3)
     return dict(kernel="groupnorm_silu", shape=list(shape), groups=groups,
-                eps=eps, silu=silu, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes",
+                eps=eps, silu=silu, param_dtype=param_dtype,
+                rerun_bit_identical=rerun_equal,
+                ok=err <= tol and rerun_equal, max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes",
                 three_pass_floor_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm, in MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def exp2_rate(torch) -> float:
+    """exp2 results a second: 16 a clock per SM on the special-function
+    unit (the CUDA programming guide's throughput table for compute
+    capability 9.0), times the SMs, at the highest SM clock."""
+    if not hasattr(exp2_rate, "value"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        exp2_rate.value = MUFU_EXP2_PER_CLOCK * sms * max_sm_clock_hz()
+    return exp2_rate.value
 
 
 def _attention_kernels():
@@ -265,6 +306,7 @@ def attn_case(torch, F, timer, gen, case, kernel="flash_attention",
     k = torch.randn(ks, generator=gen, device="cuda").bfloat16()
     v = torch.randn(ks, generator=gen, device="cuda").bfloat16()
     o = fn(q, k, v, **options)
+    torch.cuda.synchronize()          # a fault here is the kernel's
     ref = reference(q, k, v, out_dtype=torch.float32, **ref_options)
     torch.cuda.synchronize()
     err = (o.float() - ref).abs().max().item()
@@ -276,12 +318,16 @@ def attn_case(torch, F, timer, gen, case, kernel="flash_attention",
     library_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     b, sq, h, d = qs
     sk = ks[1]
-    flop_ms = 4.0 * b * h * sq * sk * d / BF16_FLOPS * 1e3
-    byte_ms = 2.0 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S * 1e3
+    parts = {"operations": 4.0 * b * h * sq * sk * d / BF16_FLOPS * 1e3,
+             "bytes": 2.0 * (2 * q.numel() + 2 * k.numel())
+             / HBM_BYTES_PER_S * 1e3,
+             # one exp2 a score on the special-function unit
+             "exp2": b * h * sq * sk / exp2_rate(torch) * 1e3}
+    bound_by = max(parts, key=parts.get)
     return dict(kernel=kernel, shape=[list(qs), list(ks)], options=options,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(flop_ms, byte_ms),
-                bound_by="operations" if flop_ms >= byte_ms else "bytes")
+                library_ms=library_ms, bound_ms=parts[bound_by],
+                bound_by=bound_by, bound_parts=parts)
 
 
 def attn_bwd_case(torch, F, timer, gen, case):
@@ -349,30 +395,97 @@ def attn_bwd_case(torch, F, timer, gen, case):
                 bound_by="operations" if flop_ms >= byte_ms else "bytes")
 
 
+def k2_staging_spread(torch, draws=4):
+    """K2's open staging fault, shown rather than gated: it stages
+    bf16(q * scale * log2 e) where the plain version (and JAX) scale f32
+    scores, so its error against its gate moves with the draw.  K2 at
+    (2,4096,8,40) on `draws` fresh draws from a generator of their own
+    (no phase-2 case's inputs move) -> each draw's err / tol."""
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ratios = []
+    for _ in range(draws):
+        q, k, v = (torch.randn((2, 4096, 8, 40), generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        ref = attention_reference(q, k, v, out_dtype=torch.float32)
+        err = (flash_attention(q, k, v).float() - ref).abs().max().item()
+        ratios.append(err / (CARD_REL * ref.abs().max().item()))
+    return ratios
+
+
+def wrapper_host_us(torch, calls=200):
+    """Host time a call of the K2 and K3 wrappers at (2,1024,8,80), in us:
+    `calls` back-to-back calls timed on the host clock without a sync (the
+    card runs each faster than the host enqueues it).  K3 encodes its two
+    tensor maps on every call; K2 has none to encode."""
+    from unirenderer_tpu_torch.ops.attn_kernel import unet_flash_attention
+    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = (torch.randn((2, 1024, 8, 80), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    out = {}
+    for name, fn in (("flash_attention", flash_attention),
+                     ("attn_kernel", unet_flash_attention)):
+        fn(q, k, v)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn(q, k, v)
+        out[name] = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def case_ok(r) -> bool:
     return r["ok"] if "ok" in r else r["max_abs_err"] <= r["tol"]
 
 
 def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
-                  bwd_cases):
-    """`route_cases`: (kernel name, case, options) of the two routes;
-    `bwd_cases`: (q shape, k shape) of K2 bwd."""
+                  bwd_cases, later_route_cases, later_gn_cases):
+    """`gn_cases`, `later_gn_cases`: (call signature, parameter type) of K1;
+    `route_cases`, `later_route_cases`: (kernel name, case, options) of the
+    two routes; `bwd_cases`: (q shape, k shape) of K2 bwd.  All draw their
+    inputs from one seeded generator in this order; the `later_` cases,
+    added after the others, run last, so that each earlier case keeps the
+    inputs it had before they were added."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    jobs = ([lambda c=c: gn_case(torch, F, timer, gen, c) for c in gn_cases]
-            + [lambda c=c: attn_case(torch, F, timer, gen, c)
-               for c in attn_cases]
-            + [lambda n=n, c=c, o=o: attn_case(torch, F, timer, gen, c, n,
-                                               **o)
-               for n, c, o in route_cases]
-            + [lambda c=c: attn_bwd_case(torch, F, timer, gen, c)
-               for c in bwd_cases])
-    results = []
-    for job in jobs:
-        r = job()
+
+    def gn_job(c, p):
+        return (f"groupnorm_silu {c} params {p}",
+                lambda: gn_case(torch, F, timer, gen, c, p))
+
+    def route_job(n, c, o):
+        return (f"{n} {c} {o}",
+                lambda: attn_case(torch, F, timer, gen, c, n, **o))
+
+    jobs = ([gn_job(c, p) for c, p in gn_cases]
+            + [route_job("flash_attention", c, {}) for c in attn_cases]
+            + [route_job(n, c, o) for n, c, o in route_cases]
+            + [(f"flash_attention_backward {c}",
+                lambda c=c: attn_bwd_case(torch, F, timer, gen, c))
+               for c in bwd_cases]
+            + [route_job(n, c, o) for n, c, o in later_route_cases]
+            + [gn_job(c, p) for c, p in later_gn_cases])
+    # what the timer reads for the least device work: a one-element fill
+    one = torch.empty(1, device="cuda")
+    floor_ms = timer(lambda: one.fill_(1.0))
+    log(f"  timer floor (one-element fill): {floor_ms:.4f} ms")
+    results = [dict(kernel="timer_floor", ms=floor_ms, ok=True)]
+    for desc, job in jobs:
+        try:
+            r = job()
+        except Exception:
+            # name the case a device fault or a refusal came from
+            log(f"  raised while running {desc}")
+            raise
         results.append(r)
         ok = case_ok(r)
         log(f"  {r['kernel']:16s} {json.dumps(r['shape'])} "
             + (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])} "
+               f"params {r['param_dtype']} rerun bit-identical "
+               f"{int(r['rerun_bit_identical'])} "
                if "groups" in r else "")
             + (f"{r['options']} " if r.get("options") else "")
             + (" ".join(f"{n} {e:.3g}/{t:.3g}"
@@ -387,7 +500,9 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
             f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
             + (f"ratio {r['ms'] / r['library_ms']:.2f}  "
                if r.get("library_ms") else "")
-            + f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            + f"bound {r['bound_ms']:.4f} ({r['bound_by']}"
+            + ("".join(f"; {k} {v:.4f}" for k, v in r["bound_parts"].items())
+               if "bound_parts" in r else "") + ")")
         torch.cuda.empty_cache()
     bad = [r for r in results if not case_ok(r)]
     check(not bad, f"{len(bad)} kernel case(s) out of tolerance")
@@ -499,15 +614,23 @@ def phase_main_path(torch, F, cfg, pipe, n_params, checked, profile):
                   warm_wall_s=warm, peak_bytes=peak, launches=launches,
                   params=n_params)
     if profile:
-        result["profile"] = profile_request(
+        prof = profile_request(
             torch, lambda: pipe.mask2image_3mod_albedo(**req, generator=gen))
+        result["profile"] = prof
+        # K1 is one device kernel a call: no statistics or finalize
+        # kernels, no casts of its parameters
+        k1 = prof["count_by_class"].get("K1 groupnorm_silu", 0)
+        log(f"  K1 device kernels in the profiled request: {k1}, wrapper "
+            f"calls per request: {launches['groupnorm_silu']}")
+        check(k1 == launches["groupnorm_silu"],
+              f"{k1} K1 device kernels for {launches['groupnorm_silu']} "
+              f"calls")
     torch.cuda.empty_cache()
     return result
 
 
 KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
-    ("K1 groupnorm_silu", ("gn_stats_kernel", "gn_finalize_kernel",
-                           "gn_apply_kernel")),
+    ("K1 groupnorm_silu", ("gn_fused_kernel",)),
     ("K2 flash_attention", ("flash_fwd_kernel",)),
     ("K2 bwd flash_attention_backward", ("bwd_prep_kernel", "bwd_kernel<",
                                          "dq_convert_kernel")),
@@ -541,20 +664,24 @@ def profile_request(torch, request):
                and not getattr(e, "is_user_annotation", False)]
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    by_class = {}
+    by_class, count_by_class = {}, {}
     for ms, n, key in kernels:
         cls = next((c for c, subs in KERNEL_CLASSES
                     if any(x in key for x in subs)), "elementwise / copy")
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        count_by_class[cls] = count_by_class.get(cls, 0) + n
     syncs = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
     log(f"  profile of one request batch: wall {wall_ms:.1f} ms (profiler "
         f"on), device busy {busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}%"
         f", device-to-host copies {syncs}")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  {cls}")
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% "
+            f"{count_by_class[cls]:6d}x  {cls}")
     for ms, n, key in kernels[:15]:
         log(f"    {ms:9.3f} ms {n:6d}x  {key[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy, by_class=by_class,
+                count_by_class=count_by_class,
+                device_kernels=sum(n for _, n, _ in kernels),
                 device_to_host_copies=syncs,
                 top=[dict(ms=ms, count=n, name=key)
                      for ms, n, key in kernels[:60]])
@@ -1119,6 +1246,34 @@ def phase_inverse(torch, F, cfg, pipe, checked, profile):
         result[f"route_{route}"].update(max_abs_diff=err, tol=tol,
                                         mean_abs_diff=mean)
     result["route_expected_launches"] = expected
+    if profile:
+        # K3's share of a warm unet_flash request, and one device kernel a
+        # K3 call: the request launches as many device kernels as the
+        # default route's, where each of these calls is one K2 kernel (no
+        # elementwise pre-scale of Q beside K3)
+        counts = {}
+        for route in ("auto", "unet_flash"):
+            os.environ["UNIRENDER_ATTN"] = route
+            try:
+                log(f"  profile of the warm forward request under "
+                    f"UNIRENDER_ATTN={route}:")
+                prof = profile_request(
+                    torch, lambda: pipe.mask2image_3mod_albedo(
+                        **fwd, generator=torch.Generator(
+                            device="cuda").manual_seed(SEED)))
+            finally:
+                del os.environ["UNIRENDER_ATTN"]
+            result[f"route_{route}"]["profile"] = prof
+            counts[route] = prof["device_kernels"]
+        k3 = result["route_unet_flash"]["profile"]["count_by_class"].get(
+            "K3 attn_kernel", 0)
+        log(f"  K3 device kernels {k3} (calls {expected}); device kernels "
+            f"per request: {counts['unet_flash']} under unet_flash, "
+            f"{counts['auto']} under the default route")
+        check(k3 == expected, f"{k3} K3 device kernels for {expected} calls")
+        check(counts["unet_flash"] == counts["auto"],
+              "the unet_flash request launches kernels beside K3 that the "
+              "default route does not")
     return result
 
 
@@ -1268,7 +1423,8 @@ KERNELS = {
         replaces="unirenderer_tpu/ops/groupnorm.py:42",
         # the UNet's 64^2 ResnetBlock norm: the most frequent large call
         headline=lambda r: (r["shape"] == [2, 64, 64, 320]
-                            and r["eps"] == 1e-5 and r["silu"])),
+                            and r["eps"] == 1e-5 and r["silu"]
+                            and r["param_dtype"] == "bfloat16")),
     "flash_attention": dict(
         route="cuda", source="unirenderer_tpu_torch/csrc/flash_attention.cu",
         replaces="unirenderer_tpu/ops/flash_attention.py:68",
@@ -1390,15 +1546,26 @@ def main(argv=None) -> int:
             attn_cases |= attn
         routed = sorted((q, k) for q, k in attn_cases
                         if q == k and tileable(q[1], k[1], q[3]))
-        # the two routes at every tileable self-attention shape; K3 also
-        # without the running max (randn inputs: the scaled logits stay
-        # far below exp2's range) and unpipelined, at the forward shapes
+        # the two routes at every tileable self-attention shape; K3 under
+        # all four flag combinations there (randn inputs: without the
+        # running max the scaled logits stay far below exp2's range) and at
+        # a ragged shape.  The cases that K3 gained with its redesign run
+        # after the earlier ones (`later_routes`).
         route_cases = ([("splash_attention", c, {}) for c in routed]
                        + [("attn_kernel", c, {}) for c in routed]
                        + [("attn_kernel", c, {"running_max": False})
                           for c in routed]
                        + [("attn_kernel", c, {"pipelined": False})
                           for c in routed if c[0][0] == 2])
+        ragged_k3 = ((1, 200, 3, 24), (1, 77, 3, 24))
+        later_routes = ([("attn_kernel", c, {"pipelined": False})
+                         for c in routed if c[0][0] != 2]
+                        + [("attn_kernel", c,
+                            {"pipelined": False, "running_max": False})
+                           for c in routed]
+                        + [("attn_kernel", ragged_k3, f) for f in (
+                            {}, {"running_max": False}, {"pipelined": False},
+                            {"pipelined": False, "running_max": False})])
         checked = {"groupnorm_silu": set(gn_cases),
                    "flash_attention": set(attn_cases),
                    "flash_attention_backward": set(train_attn),
@@ -1413,20 +1580,37 @@ def main(argv=None) -> int:
             torch.backends.cudnn.allow_tf32 = False
             log(f"phase 2 kernels vs plain versions, bf16, tolerance "
                 f"2^-7 * max|ref| (TF32 off for the plain versions): "
-                f"{len(gn_cases)} GroupNorm + {len(attn_cases)} attention "
-                f"main-path cases + ragged, {len(route_cases)} route cases, "
+                f"{len(gn_cases)} GroupNorm (bf16 parameters; f32 at the "
+                f"ragged and headline cases) + {len(attn_cases)} attention "
+                f"main-path cases + ragged, "
+                f"{len(route_cases) + len(later_routes)} route cases, "
                 f"{len(train_attn)} attention backward cases + ragged "
                 f"(tolerance 2^-6 * max|ref|)")
             ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                          ((1, 33, 31, 1920), 32, 1e-6, False)]
+            # K1 with the model's bf16 parameters at every signature and
+            # the ragged ones, and with f32 parameters (the trainer's f32
+            # path, the CPU) at the ragged ones and the headline (last)
+            gn_jobs = [(c, "bfloat16") for c in sorted(gn_cases) + ragged_gn]
+            later_gn = [(c, "float32") for c in ragged_gn + [GN_HEADLINE]]
             ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
                            ((1, 77, 3, 24), (1, 200, 3, 24))]
             timer = Timer(torch)
             results = phase_kernels(
-                torch, F, timer, sorted(gn_cases) + ragged_gn,
+                torch, F, timer, gn_jobs,
                 sorted(attn_cases) + ragged_attn, route_cases,
-                sorted(train_attn) + ragged_attn)
+                sorted(train_attn) + ragged_attn, later_routes, later_gn)
             del timer
+            spread = k2_staging_spread(torch)
+            log("  K2's staging fault (open; not gated): err / tol at "
+                "(2,4096,8,40) on fresh draws "
+                + " ".join(f"{x:.3f}" for x in spread))
+            record["k2_staging_spread"] = spread
+            host = wrapper_host_us(torch)
+            log("  host time a wrapper call at (2,1024,8,80): "
+                + ", ".join(f"{n} {us:.1f} us" for n, us in host.items())
+                + " (K3's includes encoding its two tensor maps)")
+            record["wrapper_host_us"] = host
             torch.cuda.empty_cache()
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32     # PyTorch defaults

@@ -97,6 +97,55 @@ def test_groupnorm_kernel(card, shape, groups, eps, silu):
                                          silu), "groupnorm")
 
 
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups,eps,silu", [
+    ((2, 64, 64, 320), 32, 1e-5, True),
+    ((2, 8, 8, 2560), 32, 1e-5, True),
+    ((1, 37, 29, 128), 32, 1e-6, True),
+    ((1, 4, 4, 24), 3, 1e-5, False),        # odd groups, tiny HW
+])
+def test_groupnorm_kernel_param_types_and_rerun(card, shape, groups, eps,
+                                                silu, param_dtype):
+    """Scale and bias read in their own type (the model passes bf16), and
+    a second run on the same inputs gives the same bits (the statistics
+    merge in a fixed order)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=card) * 2 + 0.5).bfloat16()
+    sc = (1 + 0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    bi = (0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    got = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    again = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, groupnorm_silu_reference(x.float(), sc, bi, groups, eps,
+                                         silu), "groupnorm")
+
+
+def _device_kernels(fn):
+    """(name, count) of every device kernel one call of fn runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def test_groupnorm_kernel_is_one_device_kernel_a_call(card):
+    x = torch.randn((2, 64, 64, 320), device=card).bfloat16()
+    w = torch.ones(320, device=card, dtype=torch.bfloat16)
+    kernels = _device_kernels(
+        lambda: fused_groupnorm_silu(x, w, w, 32, 1e-5, True))
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "gn_fused_kernel" in kernels[0][0]
+
+
 def test_groupnorm_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros((1, 4, 4, 20), dtype=torch.bfloat16, device=card)
     w = torch.ones(20, device=card)
@@ -167,7 +216,10 @@ def test_splash_attention_refuses_untileable_shapes(card):
 @pytest.mark.parametrize("pipelined", [True, False])
 @pytest.mark.parametrize("running_max", [True, False])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 8, 80),
-                                         (1, 200, 77, 3, 24)])
+                                         (1, 200, 77, 3, 24),
+                                         (2, 320, 320, 4, 40),
+                                         (2, 256, 256, 2, 8),
+                                         (2, 256, 256, 2, 128)])
 def test_unet_flash_kernel(card, b, sq, sk, h, d, pipelined, running_max):
     # bounded logits (|q.k|/sqrt(d) well under 26) for running_max=False
     q, k, v = _qkv(card, b, sq, sk, h, d, seed=4,
@@ -179,6 +231,31 @@ def test_unet_flash_kernel(card, b, sq, sk, h, d, pipelined, running_max):
     assert unet_flash_attention.launches == n + 1
     _close(got, unet_flash_reference(q, k, v, running_max, torch.float32),
            "unet_flash")
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("running_max", [True, False])
+def test_unet_flash_kernel_reads_strided_heads(card, pipelined,
+                                               running_max):
+    """q/k/v as views into one fused projection (non-contiguous S stride,
+    head stride below it): the tensor maps take the strides as they are."""
+    g = torch.Generator(device=card).manual_seed(6)
+    scale = 1.0 if running_max else 0.5
+    qkv = (scale * torch.randn((2, 300, 3, 4, 40), generator=g,
+                               device=card)).bfloat16()
+    q, k, v = qkv.unbind(2)
+    _close(unet_flash_attention(q, k, v, pipelined=pipelined,
+                                running_max=running_max),
+           unet_flash_reference(q, k, v, running_max, torch.float32),
+           "unet_flash strided")
+
+
+def test_unet_flash_is_one_device_kernel_a_call(card):
+    """Q's pre-scale happens inside the kernel: no elementwise launch."""
+    q, k, v = _qkv(card, 2, 1024, 1024, 8, 40, seed=8)
+    kernels = _device_kernels(lambda: unet_flash_attention(q, k, v))
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "unet_flash_kernel" in kernels[0][0]
 
 
 def test_unet_flash_refuses_what_it_does_not_take(card):

@@ -1,4 +1,5 @@
-// K1: GroupNorm (+ optional SiLU) forward over NHWC bf16 activations.
+// K1: GroupNorm (+ optional SiLU) forward over NHWC bf16 activations, one
+// launch per call.
 //
 // Replaces: unirenderer_tpu/ops/groupnorm.py `_kernel` (reached through
 // `_fused_fwd` and `fused_groupnorm_silu`), the Pallas TPU kernel that holds
@@ -6,187 +7,281 @@
 // read and one write.
 //
 // What bounds it on an H100: memory.  It does a handful of flops per
-// element, far below the ~295 flop/byte ridge of bf16 on this card.  The
-// least it can move is one read of x and one write of y; this design reads
-// x twice (statistics, then apply), so its floor is 3 x the activation
-// bytes over 3.35 TB/s.
+// element, far below the ~295 flop/byte ridge of bf16 on this card; the
+// least it can move is one read of x and one write of y.  At the UNet's
+// small shapes what bounds it in practice is launches: a forward request
+// calls it ~1300 times.
 //
 // Why the TPU design does not carry over: a (4096, 320) bf16 slice (2.6 MB)
 // does not fit one SM's 227 KB of shared memory, and the VAE's
-// (262144, 128) slice fits nowhere on chip.  So the reduction is split
-// across blocks and finished in a second step:
-//   1. gn_stats:    grid (row chunks, B).  Each thread walks rows of one
-//                   16-byte column vector (8 channels) with a per-channel
-//                   Welford update; the block merges its threads and then
-//                   its channels into per-group (mean, M2) with Chan's
-//                   parallel formula and writes one partial per
-//                   (b, chunk, group).  No E[x^2] - mean^2 anywhere: a
-//                   group holds up to a million elements at the VAE's top
-//                   level, where the one-pass form loses the variance.
-//   2. gn_finalize: one warp per (b, group) Chan-merges the chunk partials
-//                   and writes (mean, rstd).
-//   3. gn_apply:    grid (row chunks, B), 16-byte loads and stores along C
-//                   (contiguous in NHWC), normalise, affine, optional SiLU,
-//                   output in bf16.
+// (262144, 128) slice fits nowhere on chip.  So the statistics are split
+// across blocks, and one grid-wide barrier joins them:
+//   * a persistent grid, every block resident at once (a cooperative
+//     launch; the grid comes from the occupancy calculator and the SM
+//     count), block (b, chunk) owning a contiguous range of the rows of
+//     batch element b;
+//   * each thread walks rows of one 16-byte column vector (8 channels)
+//     with a per-channel Welford update (no E[x^2] - mean^2 anywhere: a
+//     group holds up to a million elements at the VAE's top level, where
+//     the one-pass form loses the variance); the block merges its row
+//     lanes by Chan's formula in a fixed tree, then its channels into
+//     per-group (mean, M2) (equal counts: the mean of the means, M2 plus
+//     n * the squared spread of the means), and writes one partial per
+//     (b, chunk, group);
+//   * grid barrier; every block merges the partials of its batch element's
+//     groups in a fixed order (a lane per chunk stride, then a fixed tree
+//     over the lanes; no float atomics), so a rerun gives the same bits;
+//   * the block applies (x - mean) * rstd * scale + bias, optional SiLU,
+//     and writes y in bf16 with 16-byte stores.
+// Where the block's rows fit in shared memory (every UNet and attribute
+// encoder shape at batch 2), the first pass keeps them there and the apply
+// reads them back: x is read from device memory once.  Where they do not
+// (the VAE's 256^2-512^2 levels) the apply reads x again, mostly from L2
+// for all but the largest.  The branch is chosen from the shape before the
+// launch; both are the same kernel.
+// scale and bias are read in their own type (bf16 or f32, a template).
 // Any C that is a multiple of 8 and of G works, so C/G need not be a power
 // of two (10, 20, 40, 60 at flagship widths; 4 in the VAE).
 //
 // Interface: plain C, no PyTorch headers.  The launcher allocates nothing
-// (the caller passes the workspace), launches on the caller's stream and
-// returns cudaGetLastError().
+// (the caller passes the workspace: one float2 per (block, group), fully
+// written before it is read), launches on the caller's stream and returns
+// cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr int kVec = 8;            // bf16 channels per 16-byte vector
-constexpr int kThreads = 256;      // target threads per block
+constexpr int kThreads = 512;      // most threads a block
+constexpr int kMinBlocks = 2;      // per SM: <= 64 registers a thread
+constexpr int kSlots = 64;         // launch plans kept
 
 __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
                                            float nb, float meanb, float m2b) {
   if (nb == 0.f) return;
+  if (n == 0.f) {
+    n = nb;
+    mean = meanb;
+    m2 = m2b;
+    return;
+  }
   const float nt = n + nb;
   const float d = meanb - mean;
-  const float f = nb / nt;
+  const float f = __fdividef(nb, nt);
   mean += d * f;
   m2 += m2b + d * d * n * f;
   n = nt;
 }
 
-// blockDim = (V, RL): V = C / 8 column vectors, RL row lanes.
-__global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                float2* __restrict__ part, int hw, int c,
-                                int groups, int rows_per_chunk,
-                                int n_chunks) {
-  extern __shared__ float sh[];
-  const int nv = blockDim.x, rl = blockDim.y;
-  const int vc = threadIdx.x, ry = threadIdx.y;
-  const int nthreads = nv * rl;
-  const int tid = ry * nv + vc;
-  float* s_n = sh;                          // [nthreads]
-  float* s_mean = s_n + nthreads;           // [nthreads * 8]
-  float* s_m2 = s_mean + nthreads * kVec;   // [nthreads * 8]
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
 
-  const int b = blockIdx.y, chunk = blockIdx.x;
+__device__ __forceinline__ void welford8(float n_inv, const uint4& raw,
+                                         float (&mean)[kVec],
+                                         float (&m2)[kVec]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    float d = f.x - mean[2 * i];
+    mean[2 * i] += d * n_inv;
+    m2[2 * i] += d * (f.x - mean[2 * i]);
+    d = f.y - mean[2 * i + 1];
+    mean[2 * i + 1] += d * n_inv;
+    m2[2 * i + 1] += d * (f.y - mean[2 * i + 1]);
+  }
+}
+
+// Thread t works column vector t % V (V = C / 8) on row lane t / V; RL
+// row lanes, blockDim.x = V * RL rounded up to whole warps (the extra
+// threads only join the warp reductions).  grid = batch * n_chunks blocks,
+// block (b, chunk) at b * n_chunks + chunk.
+// Shared memory: [scratch: 17 floats a thread][group stats: 2 * groups
+// floats, 16-byte aligned][x cache: cached ? rows_per_chunk * C bf16].
+template <typename P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
+                const P* __restrict__ bias, bf16* __restrict__ y,
+                float2* __restrict__ part, int hw, int c, int groups,
+                int rl, int rows_per_chunk, int n_chunks,
+                int scratch_floats, float eps, int silu, int cached) {
+  extern __shared__ float4 smem4[];
+  float* scratch = reinterpret_cast<float*>(smem4);
+  float2* gstat = reinterpret_cast<float2*>(scratch + scratch_floats);
+  uint4* cache = reinterpret_cast<uint4*>(scratch + scratch_floats +
+                                          (2 * groups + 3) / 4 * 4);
+  const int nv = c / kVec;
+  const int tid = threadIdx.x;
+  const int vc = tid % nv, ry = tid / nv;     // ry >= rl: no rows
+  const int b = blockIdx.x / n_chunks, chunk = blockIdx.x % n_chunks;
   const int r0 = chunk * rows_per_chunk;
   const int r1 = min(hw, r0 + rows_per_chunk);
-  const __nv_bfloat16* xb = x + (size_t)b * hw * c + (size_t)vc * kVec;
+  const int cg_ = c / groups;
+  const uint4* xb = reinterpret_cast<const uint4*>(x + (size_t)b * hw * c);
+  const int pitch = c / kVec;          // uint4s a row
 
+  // ---- 1. per-channel Welford over this thread's rows, four loads in
+  // flight at a time
   float n = 0.f, mean[kVec], m2[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) mean[i] = m2[i] = 0.f;
-  for (int r = r0 + ry; r < r1; r += rl) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xb + (size_t)r * c);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    n += 1.f;
-    const float inv = 1.f / n;
+  for (int r = ry < rl ? r0 + ry : r1; r < r1; r += 4 * rl) {
+    uint4 raw[4];
 #pragma unroll
-    for (int i = 0; i < kVec / 2; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      float d = f.x - mean[2 * i];
-      mean[2 * i] += d * inv;
-      m2[2 * i] += d * (f.x - mean[2 * i]);
-      d = f.y - mean[2 * i + 1];
-      mean[2 * i + 1] += d * inv;
-      m2[2 * i + 1] += d * (f.y - mean[2 * i + 1]);
+    for (int u = 0; u < 4; ++u) {
+      if (r + u * rl < r1) raw[u] = xb[(size_t)(r + u * rl) * pitch + vc];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r + u * rl < r1) {
+        if (cached) cache[(r + u * rl - r0) * pitch + vc] = raw[u];
+        n += 1.f;
+        welford8(__frcp_rn(n), raw[u], mean, m2);
+      }
     }
   }
-  s_n[tid] = n;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    s_mean[tid * kVec + i] = mean[i];
-    s_m2[tid * kVec + i] = m2[i];
-  }
-  __syncthreads();
 
-  // merge the row lanes of each column vector into lane 0
-  if (ry == 0) {
-    for (int j = 1; j < rl; ++j) {
-      const int o = j * nv + vc;
-      const float nb = s_n[o];
-      float nn = 0.f;
+  // ---- 2. merge the row lanes of each column vector by a fixed tree over
+  // ry: at each step lanes [s, 2s) hand their sums to lanes [0, s); row
+  // lane 0 ends with the block's sums
+  int top = 1;
+  while (top < rl) top <<= 1;
+  for (int step = top >> 1; step > 0; step >>= 1) {
+    const int slots = step * nv;          // (1 + 2 * kVec) floats each
+    if (ry >= step && ry < 2 * step) {
+      const int o = (ry - step) * nv + vc;
+      scratch[o] = n;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        scratch[(1 + i) * slots + o] = mean[i];
+        scratch[(1 + kVec + i) * slots + o] = m2[i];
+      }
+    }
+    __syncthreads();
+    if (ry < step && ry + step < rl) {
+      const int o = ry * nv + vc;
+      const float nb = scratch[o];
+      float nn = n;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         nn = n;
-        chan_merge(nn, mean[i], m2[i], nb, s_mean[o * kVec + i],
-                   s_m2[o * kVec + i]);
+        chan_merge(nn, mean[i], m2[i], nb, scratch[(1 + i) * slots + o],
+                   scratch[(1 + kVec + i) * slots + o]);
       }
       n = nn;
     }
-    s_n[vc] = n;
+    __syncthreads();
+  }
+  // per-channel (mean, M2) over the block's rows, channel ch at [ch], [c+ch]
+  if (ry == 0) {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
-      s_mean[vc * kVec + i] = mean[i];
-      s_m2[vc * kVec + i] = m2[i];
+      scratch[vc * kVec + i] = mean[i];
+      scratch[c + vc * kVec + i] = m2[i];
     }
   }
   __syncthreads();
 
-  // merge the channels of each group; channel ch sits at s_*[ch]
-  const int cg = c / groups;
-  for (int g = tid; g < groups; g += nthreads) {
-    float gn = 0.f, gmean = 0.f, gm2 = 0.f;
-    for (int ch = g * cg; ch < (g + 1) * cg; ++ch) {
-      chan_merge(gn, gmean, gm2, s_n[ch / kVec], s_mean[ch], s_m2[ch]);
+  // ---- 3. channels -> groups (every channel has the block's row count):
+  // a warp per group, lanes over its channels, fixed butterfly sums
+  const float rows = (float)(r1 - r0);
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  for (int gi = warp; gi < groups; gi += n_warps) {
+    float sm = 0.f;
+    for (int ch = gi * cg_ + lane; ch < (gi + 1) * cg_; ch += 32) {
+      sm += scratch[ch];
     }
-    part[((size_t)b * n_chunks + chunk) * groups + g] =
-        make_float2(gmean, gm2);
-  }
-}
-
-// One warp per (b, group).
-__global__ void gn_finalize_kernel(const float2* __restrict__ part,
-                                   float2* __restrict__ stats, int hw,
-                                   int groups, int cg, int rows_per_chunk,
-                                   int n_chunks, float eps) {
-  const int bg = blockIdx.x;
-  const int b = bg / groups, g = bg % groups;
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  for (int ch = threadIdx.x; ch < n_chunks; ch += 32) {
-    const float2 p = part[((size_t)b * n_chunks + ch) * groups + g];
-    const int rows = min(hw, (ch + 1) * rows_per_chunk) - ch * rows_per_chunk;
-    chan_merge(n, mean, m2, (float)rows * (float)cg, p.x, p.y);
-  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
-    const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
-    const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
-    chan_merge(n, mean, m2, nb, mb, m2b);
+    for (int off = 16; off > 0; off >>= 1) {
+      sm += __shfl_xor_sync(0xffffffffu, sm, off);
+    }
+    const float gmean = sm / (float)cg_;
+    float sq = 0.f;
+    for (int ch = gi * cg_ + lane; ch < (gi + 1) * cg_; ch += 32) {
+      const float dm = scratch[ch] - gmean;
+      sq += scratch[c + ch] + rows * dm * dm;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    }
+    if (lane == 0) {
+      part[(size_t)blockIdx.x * groups + gi] = make_float2(gmean, sq);
+    }
   }
-  if (threadIdx.x == 0) {
-    const float var = fmaxf(m2 / n, 0.f);
-    stats[bg] = make_float2(mean, rsqrtf(var + eps));
-  }
-}
 
-__global__ void gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ bias,
-                                const float2* __restrict__ stats,
-                                __nv_bfloat16* __restrict__ y, int hw, int c,
-                                int groups, int rows_per_chunk, int silu) {
-  const int rl = blockDim.y;
-  const int vc = threadIdx.x, ry = threadIdx.y;
-  const int b = blockIdx.y, chunk = blockIdx.x;
-  const int cg = c / groups;
+  // ---- 4. every block's partials written
+  cg::this_grid().sync();
+
+  // ---- 5. merge the chunks of batch element b per group, in a fixed
+  // order: `span` lanes a group (a power of two up to 32, as many as the
+  // block holds), lane l taking chunks l, l + span, ... in turn; then a
+  // fixed tree over the lanes
+  int span = 32;
+  while (span > 1 && groups * span > (int)blockDim.x) span >>= 1;
+  const int per_round = blockDim.x / span;
+  const int sub = tid % span;
+  const float2* pb = part + (size_t)b * n_chunks * groups;
+  for (int g0 = 0; g0 < groups; g0 += per_round) {
+    const int gi = g0 + tid / span;
+    float gn = 0.f, gmean = 0.f, gm2 = 0.f;
+    if (gi < groups) {
+      auto take = [&](int ch, float2 p) {
+        const float nrows = (float)(min(hw, (ch + 1) * rows_per_chunk) -
+                                    ch * rows_per_chunk);
+        chan_merge(gn, gmean, gm2, nrows * (float)cg_, p.x, p.y);
+      };
+      int ch = sub;
+      for (; ch + 3 * span < n_chunks; ch += 4 * span) {
+        float2 p[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          p[u] = __ldcg(pb + (size_t)(ch + u * span) * groups + gi);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) take(ch + u * span, p[u]);
+      }
+      for (; ch < n_chunks; ch += span) {
+        take(ch, __ldcg(pb + (size_t)ch * groups + gi));
+      }
+    }
+    for (int off = span >> 1; off > 0; off >>= 1) {
+      const float nb = __shfl_down_sync(0xffffffffu, gn, off, span);
+      const float mb = __shfl_down_sync(0xffffffffu, gmean, off, span);
+      const float qb = __shfl_down_sync(0xffffffffu, gm2, off, span);
+      if (sub < off) chan_merge(gn, gmean, gm2, nb, mb, qb);
+    }
+    if (gi < groups && sub == 0) {
+      const float var = fmaxf(gm2 / gn, 0.f);
+      gstat[gi] = make_float2(gmean, rsqrtf(var + eps));
+    }
+  }
+  __syncthreads();
+
+  // ---- 6. apply: (x - mean) * rstd * scale + bias, optional SiLU
   float mu[kVec], a[kVec], sh[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const int ch = vc * kVec + i;
-    const float2 st = stats[b * groups + ch / cg];
+    const float2 st = gstat[ch / cg_];
     mu[i] = st.x;
-    a[i] = st.y * scale[ch];
-    sh[i] = bias[ch];
+    a[i] = st.y * to_float(scale[ch]);
+    sh[i] = to_float(bias[ch]);
   }
-  const int r0 = chunk * rows_per_chunk;
-  const int r1 = min(hw, r0 + rows_per_chunk);
-  const size_t base = (size_t)b * hw * c + (size_t)vc * kVec;
-  for (int r = r0 + ry; r < r1; r += rl) {
-    const size_t off = base + (size_t)r * c;
-    uint4 raw = *reinterpret_cast<const uint4*>(x + off);
+  uint4* yb = reinterpret_cast<uint4*>(y + (size_t)b * hw * c);
+  for (int r = ry < rl ? r0 + ry : r1; r < r1; r += rl) {
+    uint4 raw = cached ? cache[(r - r0) * pitch + vc]
+                       : xb[(size_t)r * pitch + vc];
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < kVec / 2; ++i) {
@@ -194,73 +289,165 @@ __global__ void gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
       float v0 = (f.x - mu[2 * i]) * a[2 * i] + sh[2 * i];
       float v1 = (f.y - mu[2 * i + 1]) * a[2 * i + 1] + sh[2 * i + 1];
       if (silu) {
-        v0 = v0 / (1.f + expf(-v0));
-        v1 = v1 / (1.f + expf(-v1));
+        v0 = __fdividef(v0, 1.f + __expf(-v0));
+        v1 = __fdividef(v1, 1.f + __expf(-v1));
       }
       h2[i] = __floats2bfloat162_rn(v0, v1);
     }
-    *reinterpret_cast<uint4*>(y + off) = raw;
+    yb[(size_t)r * pitch + vc] = raw;
   }
 }
 
 struct Plan {
-  int nv, rl, rows_per_chunk, n_chunks;
+  int batch, hw, c, groups, dtype;      // the key
+  int nv, rl, threads, rows_per_chunk, n_chunks, scratch_floats, cached;
+  size_t smem;
 };
 
-Plan make_plan(int batch, int hw, int c) {
-  Plan p;
-  p.nv = c / kVec;
-  p.rl = p.nv >= kThreads ? 1 : kThreads / p.nv;
-  // aim for ~4 blocks per SM over the whole batch, at least 2 rows a lane
-  const long long total_rows = (long long)batch * hw;
-  long long rows = (total_rows + 527) / 528;
-  if (rows < 2LL * p.rl) rows = 2LL * p.rl;
-  rows = (rows + p.rl - 1) / p.rl * p.rl;
-  if (rows > hw) rows = hw;
-  p.rows_per_chunk = (int)rows;
-  p.n_chunks = (hw + p.rows_per_chunk - 1) / p.rows_per_chunk;
-  return p;
+Plan g_plans[kSlots];
+int g_n_plans = 0;
+int g_sms = 0, g_max_smem = 0;
+
+template <typename P>
+int occupancy(int threads, size_t smem) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, gn_fused_kernel<P>, threads, smem) != cudaSuccess) {
+    return 0;
+  }
+  return n;
+}
+
+// The launch plan of a shape: the cached branch with as many blocks an SM
+// as fit (x's rows in shared memory), else the re-reading branch over every
+// block the card holds at once.  0 on success.
+template <typename P>
+int make_plan(Plan& p) {
+  if (g_sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&g_max_smem,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaError_t e = cudaFuncSetAttribute(
+        gn_fused_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        g_max_smem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(gn_fused_kernel<bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_max_smem);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  p.nv = p.c / kVec;
+  p.rl = kThreads / p.nv;
+  if (p.rl > p.hw) p.rl = p.hw;
+  const int threads = (p.nv * p.rl + 31) / 32 * 32;
+  p.threads = threads;
+  int top = 1;
+  while (top < p.rl) top <<= 1;
+  const int tree = (1 + 2 * kVec) * (top / 2) * p.nv;
+  const int scratch = tree > 2 * p.c ? tree : 2 * p.c;
+  p.scratch_floats = (scratch + 3) / 4 * 4;         // 16-byte aligned
+  const size_t fixed16 =
+      sizeof(float) * (p.scratch_floats + (2 * p.groups + 3) / 4 * 4);
+  // at least ~8 KB of x a block: fewer partials where x is small
+  const int min_rows = 4096 / p.c > 1 ? 4096 / p.c : 1;
+  auto split = [&](int n_blocks) {
+    int chunks = n_blocks / p.batch;
+    if (chunks > p.hw / min_rows) chunks = p.hw / min_rows;
+    if (chunks < 1) chunks = 1;
+    p.rows_per_chunk = (p.hw + chunks - 1) / chunks;
+    p.n_chunks = (p.hw + p.rows_per_chunk - 1) / p.rows_per_chunk;
+  };
+  const int occ0 = occupancy<P>(threads, fixed16);
+  for (int per_sm = 1; per_sm <= occ0; ++per_sm) {
+    split(per_sm * g_sms);
+    const size_t smem =
+        fixed16 + (size_t)p.rows_per_chunk * p.c * sizeof(bf16);
+    if (smem <= (size_t)g_max_smem &&
+        occupancy<P>(threads, smem) * g_sms >= p.batch * p.n_chunks) {
+      p.cached = 1;
+      p.smem = smem;
+      return 0;
+    }
+  }
+  split(occ0 * g_sms);
+  p.cached = 0;
+  p.smem = fixed16;
+  if (occ0 < 1 || p.batch * p.n_chunks > occ0 * g_sms) {
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  return 0;
+}
+
+const Plan* plan_for(int batch, int hw, int c, int groups, int dtype,
+                     int* err) {
+  for (int i = 0; i < g_n_plans; ++i) {
+    const Plan& p = g_plans[i];
+    if (p.batch == batch && p.hw == hw && p.c == c && p.groups == groups &&
+        p.dtype == dtype) {
+      return &p;
+    }
+  }
+  Plan p = {};
+  p.batch = batch;
+  p.hw = hw;
+  p.c = c;
+  p.groups = groups;
+  p.dtype = dtype;
+  *err = dtype ? make_plan<bf16>(p) : make_plan<float>(p);
+  if (*err) return nullptr;
+  Plan& slot = g_plans[g_n_plans < kSlots ? g_n_plans++ : batch % kSlots];
+  slot = p;
+  return &slot;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of workspace gn_silu_forward needs for these sizes.
-long long gn_workspace_bytes(int batch, int hw, int c, int groups) {
-  const Plan p = make_plan(batch, hw, c);
-  return (long long)sizeof(float2) *
-         ((long long)batch * p.n_chunks * groups + (long long)batch * groups);
+// Most blocks a launch may use: float2s of workspace per group.
+int gn_max_blocks(void) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms * 32;                     // resident blocks an SM at most
 }
 
-// x, y: (batch, hw, c) bf16, contiguous, 16-byte aligned.
-// scale, bias: (c,) f32.  ws: gn_workspace_bytes(...) bytes.
+// x, y: (batch, hw, c) bf16, contiguous, 16-byte aligned.  scale, bias:
+// (c,) of one type, bf16 (param_bf16 = 1) or f32 (0).  ws: at least
+// gn_max_blocks() * groups float2.  Returns a CUDA error code, 0 on success.
 int gn_silu_forward(const void* x, const void* scale, const void* bias,
                     void* y, void* ws, int batch, int hw, int c, int groups,
-                    float eps, int silu, void* stream) {
-  if (c % kVec != 0 || c % groups != 0 || c / kVec > 1024 || batch <= 0 ||
-      hw <= 0 || batch > 65535) {
+                    float eps, int silu, int param_bf16, void* stream) {
+  if (c % kVec != 0 || c % groups != 0 || c / kVec > kThreads ||
+      batch <= 0 || hw <= 0 || groups <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const Plan p = make_plan(batch, hw, c);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  int err = 0;
+  const Plan* p = plan_for(batch, hw, c, groups, param_bf16 ? 1 : 0, &err);
+  if (p == nullptr) return err;
+  const bf16* xp = reinterpret_cast<const bf16*>(x);
+  bf16* yp = reinterpret_cast<bf16*>(y);
   float2* part = reinterpret_cast<float2*>(ws);
-  float2* stats = part + (size_t)batch * p.n_chunks * groups;
-  const dim3 block(p.nv, p.rl);
-  const dim3 grid(p.n_chunks, batch);
-  const size_t smem = sizeof(float) * (size_t)p.nv * p.rl * (1 + 2 * kVec);
-  gn_stats_kernel<<<grid, block, smem, st>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), part, hw, c, groups,
-      p.rows_per_chunk, p.n_chunks);
-  gn_finalize_kernel<<<batch * groups, 32, 0, st>>>(
-      part, stats, hw, groups, c / groups, p.rows_per_chunk, p.n_chunks,
-      eps);
-  gn_apply_kernel<<<grid, block, 0, st>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x),
-      reinterpret_cast<const float*>(scale),
-      reinterpret_cast<const float*>(bias), stats,
-      reinterpret_cast<__nv_bfloat16*>(y), hw, c, groups, p.rows_per_chunk,
-      silu);
+  int hw_ = hw, c_ = c, g_ = groups, rl = p->rl, rpc = p->rows_per_chunk,
+      nch = p->n_chunks, sf = p->scratch_floats, silu_ = silu,
+      cached = p->cached;
+  float eps_ = eps;
+  const void* sp = scale;
+  const void* bp = bias;
+  void* args[] = {(void*)&xp, (void*)&sp,  (void*)&bp,  (void*)&yp,
+                  (void*)&part, (void*)&hw_, (void*)&c_, (void*)&g_,
+                  (void*)&rl,   (void*)&rpc, (void*)&nch, (void*)&sf,
+                  (void*)&eps_, (void*)&silu_, (void*)&cached};
+  const dim3 block(p->threads);
+  const dim3 grid(batch * p->n_chunks);
+  const void* fn = param_bf16 ? (const void*)gn_fused_kernel<bf16>
+                              : (const void*)gn_fused_kernel<float>;
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, grid, block, args, p->smem, reinterpret_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

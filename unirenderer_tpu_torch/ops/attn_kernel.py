@@ -1,5 +1,5 @@
 """K3: the unet_flash route, non-causal attention forward over
-(B, S, H, D) tensors with K/V tiles pipelined through shared memory.
+(B, S, H, D) tensors, warp-specialised for Hopper (TMA, wgmma, ping-pong).
 
 Counterpart of `unirenderer_tpu/ops/attn_kernel.py` (`unet_flash_attention`,
 whose Pallas kernel is `_kernel`), the TPU's forward-only kernel for the
@@ -7,18 +7,20 @@ UNet's self-attention, reached under `UNIRENDER_ATTN=unet_flash`.  As
 there: Q is pre-scaled by softmax_scale * log2(e) in Q's type and the
 softmax is exp2; `running_max=False` drops the running max and the
 accumulator rescale (exact for bounded logits: the scaled scores must stay
-below ~126, where f32 exp2 overflows); `pipelined` overlaps the load of
-the next K/V tile with the current one's compute; S and Sk must divide
-the blocks (block_q 512, block_k 1024, each capped at S / Sk), or the call
-raises ValueError, as the JAX kernel does.  On a CUDA tensor the wrapper
-launches the hand-written kernel of `csrc/attn_kernel.cu` (bf16, D a
-multiple of 8 up to 128) and raises on anything it does not take; on a
-CPU tensor it runs the plain version below.
+below ~126, where f32 exp2 overflows); `pipelined` overlaps a tile's
+scores with the previous tile's update; S and Sk must divide the blocks
+(block_q 512, block_k 1024, each capped at S / Sk), or the call raises
+ValueError, as the JAX kernel does.  On a CUDA tensor the wrapper launches
+the hand-written kernel of `csrc/attn_kernel.cu` (bf16, D a multiple of 8
+up to 128), which stages Q as bf16(q * bf16(factor)) itself (the bits of
+`prescale_q`): one launch per call, nothing else.  It raises on anything
+the kernel does not take; on a CPU tensor it runs the plain version below.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -26,7 +28,7 @@ import torch
 
 from unirenderer_tpu_torch.ops import _build
 from unirenderer_tpu_torch.ops.flash_attention import (
-    check_operands, packed_strides, prescale_q,
+    check_operands, packed_strides, prescale_factor, prescale_q,
 )
 
 MAX_HEAD_DIM = 128
@@ -37,6 +39,12 @@ def _factor(d: int) -> float:
     """softmax_scale * log2(e), which JAX folds into Q in Q's type
     (attn_kernel.py:132 of the JAX package)."""
     return 1.0 / math.sqrt(d) * LOG2E
+
+
+@functools.lru_cache(maxsize=None)
+def qscale(d: int) -> float:
+    """The factor the kernel stages Q with: `_factor(d)` rounded to bf16."""
+    return prescale_factor(torch.bfloat16, _factor(d))
 
 
 def unet_flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,8 +75,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attn_kernel")
     if lib.unet_flash_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.unet_flash_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, i, i,
-                                           p]
+        lib.unet_flash_forward.argtypes = [p, p, p, p, i, i, i, i, i, p,
+                                           ctypes.c_float, i, i, p]
         lib.unet_flash_forward.restype = ctypes.c_int
     return lib
 
@@ -76,13 +84,13 @@ def _lib() -> ctypes.CDLL:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pipelined: bool, running_max: bool) -> torch.Tensor:
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
-    qs = prescale_q(q, _factor(d))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = packed_strides(qs, k, v, o)
+    strides = packed_strides(q, k, v, o)
     rc = _lib().unet_flash_forward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, h, sq, sk, d, ctypes.addressof(strides), int(pipelined),
-        int(running_max), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        b, h, sq, sk, d, ctypes.addressof(strides),
+        qscale(d), int(pipelined), int(running_max),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"unet_flash attention launch failed: CUDA error "
                            f"{rc}")

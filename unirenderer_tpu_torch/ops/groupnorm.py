@@ -2,9 +2,10 @@
 
 Counterpart of `unirenderer_tpu/ops/groupnorm.py` (`fused_groupnorm_silu`,
 whose Pallas kernel is `_kernel` via `_fused_fwd`).  On a CUDA tensor the
-wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (bf16 only)
-and raises on anything it does not take; on a CPU tensor it runs the plain
-PyTorch version below.
+wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (x in bf16;
+scale and bias in bf16 or f32, read in their own type: the wrapper casts
+nothing) once per call, and raises on anything it does not take; on a CPU
+tensor it runs the plain PyTorch version below.
 
 Under autograd the call is a `torch.autograd.Function` whose backward is
 autograd through the plain version, recomputed from the saved x, scale
@@ -15,11 +16,15 @@ kernel, and neither does the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from unirenderer_tpu_torch.ops import _build
+
+# the parameter types the kernel reads, and its flag for each
+_PARAM_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def groupnorm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -37,16 +42,90 @@ def groupnorm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
+def merge_span(hw: int, c: int, groups: int) -> int:
+    """Lanes the kernel gives each group when it merges the chunks: the
+    largest power of two up to 32 with groups * span <= its threads (C / 8
+    column vectors times min(512 // (C / 8), HW) row lanes, in whole
+    warps)."""
+    nv = c // 8
+    threads = -(-nv * min(512 // nv, hw) // 32) * 32
+    span = 32
+    while span > 1 and groups * span > threads:
+        span //= 2
+    return span
+
+
+def chunked_stats_reference(x: torch.Tensor, groups: int, n_chunks: int,
+                            span: int = 32) -> tuple:
+    """The kernel's statistics, in its order, in f32: x (B, ..., C) split
+    into `n_chunks` contiguous row ranges per batch element (the kernel's
+    blocks); per chunk and channel the mean and M2 (two passes here; in the
+    kernel a Welford walk per row lane and a tree over the lanes); the
+    channels of a group merged at equal counts (the mean of the means; M2
+    plus n times the squared spread of the means); the chunks merged by
+    Chan's formula in the kernel's fixed order: `span` lanes a group, lane
+    l taking chunks l, l + span, ... in turn, then a tree over the lanes
+    (offsets span / 2, ..., 1).  Returns each (batch, group)'s mean and
+    variance, (B, G) each."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    xf = x.float().reshape(b, -1, c)
+    hw = xf.shape[1]
+    rows = -(-hw // max(1, min(n_chunks, hw)))
+    parts = []                      # per chunk: (n, mean, M2), (B, G) each
+    for r0 in range(0, hw, rows):
+        r1 = min(hw, r0 + rows)
+        chunk = xf[:, r0:r1].reshape(b, r1 - r0, groups, cg)
+        ch_mean = chunk.mean(dim=1)                       # (B, G, cg)
+        ch_m2 = ((chunk - ch_mean[:, None]) ** 2).sum(dim=1)
+        g_mean = ch_mean.sum(dim=-1) / cg
+        g_m2 = (ch_m2 + (r1 - r0) * (ch_mean - g_mean[..., None]) ** 2
+                ).sum(dim=-1)
+        parts.append((float((r1 - r0) * cg), g_mean, g_m2))
+
+    def merge(a, bb):
+        (na, ma, qa), (nb, mb, qb) = a, bb
+        if nb == 0:
+            return a
+        if na == 0:
+            return bb
+        nt = na + nb
+        d = mb - ma
+        f = torch.tensor(nb, dtype=torch.float32) / nt
+        return (nt, ma + d * f, qa + qb + d * d * na * f)
+
+    zero = (0.0, torch.zeros(b, groups), torch.zeros(b, groups))
+    lanes = []
+    for lane in range(span):
+        acc = zero
+        for ch in range(lane, len(parts), span):
+            acc = merge(acc, parts[ch])
+        lanes.append(acc)
+    off = span // 2
+    while off:
+        lanes = [merge(lanes[i], lanes[i + off]) if i < off else lanes[i]
+                 for i in range(span)]
+        off //= 2
+    n, mean, m2 = lanes[0]
+    return mean, torch.clamp(m2 / n, min=0.0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("groupnorm")
     if lib.gn_silu_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gn_workspace_bytes.argtypes = [i, i, i, i]
-        lib.gn_workspace_bytes.restype = ctypes.c_longlong
+        lib.gn_max_blocks.argtypes = []
+        lib.gn_max_blocks.restype = i
         lib.gn_silu_forward.argtypes = [p, p, p, p, p, i, i, i, i,
-                                        ctypes.c_float, i, p]
+                                        ctypes.c_float, i, i, p]
         lib.gn_silu_forward.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        return _lib().gn_max_blocks()
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -65,17 +144,22 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"scale/bias must be ({c},)")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError("scale/bias must be on the input's device")
+    if scale.dtype != bias.dtype or scale.dtype not in _PARAM_TYPES:
+        raise TypeError(f"scale/bias must share one type of bfloat16 or "
+                        f"float32, got {scale.dtype}/{bias.dtype}")
+    if not (scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("scale/bias must be contiguous")
     batch = x.shape[0]
     hw = math.prod(x.shape[1:-1])
     lib = _lib()
-    scale32 = scale.float().contiguous()
-    bias32 = bias.float().contiguous()
-    ws = torch.empty(lib.gn_workspace_bytes(batch, hw, c, groups),
+    # one float2 per (block, group): written whole before it is read
+    ws = torch.empty(_max_blocks(x.device.index) * groups * 8,
                      dtype=torch.uint8, device=x.device)
     y = torch.empty_like(x)
     rc = lib.gn_silu_forward(
-        x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         ws.data_ptr(), batch, hw, c, groups, float(eps), int(bool(silu)),
+        _PARAM_TYPES[scale.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: CUDA error {rc}")
