@@ -27,13 +27,14 @@ phase 7):
      at every attention shape of the flagship training step (batch 2) plus
      a ragged case each: dQ, dK, dV each within 2^-6 * max|plain| of the
      plain backward in f32 on the same bf16 inputs and the kernel's own O
-     and log-sum-exp, that log-sum-exp within 2^-14 of the plain one of
-     its own bf16-staged Q, the forward's output with the log-sum-exp
+     and log-sum-exp, that log-sum-exp within 2^-14 of the plain f32 one
+     of its bf16 inputs, the forward's output with the log-sum-exp
      bit-identical to the serving launch's, and a second backward run on
      the same inputs (dQ's f32 sums are atomic adds in no fixed order)
      within the tolerance of the first; library = autograd of
      F.scaled_dot_product_attention; every case prints its ratio to the
-     library call
+     library call; K2 on 8 fresh draws at (2,4096,8,40), each within its
+     2^-7 * max|plain|
   3  the main path at flagship width: random bf16 weights made on the card
      from a seed, 2 requests (one batch of 2) through
      `UniRendererPipeline.mask2image_3mod_albedo`, 20 UniPC steps; checks
@@ -48,8 +49,13 @@ phase 7):
   5  the rasterizer (K4) against its plain version on the card: the
      flagship collate's shape (2 views at 1024^2, deformed 90-ring spheres,
      T padded to 32768), the small() shape (128^2, T 8192), a depth-peel
-     layer and a ragged size; the comparison rule of the JAX package's
-     Pallas test; kernel, plain and bound times
+     layer, a ragged size, a full-screen triangle over the flagship views
+     and a mesh of degenerate and padding triangles only; each within the
+     comparison rule of the JAX package's Pallas test and bit-equal; the
+     set-up kernel's records and boxes bit-equal to `_setup` and its tile
+     lists equal to `rast_bins_reference` at the flagship collate; device
+     kernels a call (torch.profiler, at most 5); kernel, plain and bound
+     times
   6  the flagship render chain: one env prefiltered on the card (512 base,
      6 specular mips), `collate_render` of 2 scenes at DataConfig()
      (512^2, SSAA 2, T 32768, 256^2 textures), its 8 maps through
@@ -138,9 +144,10 @@ INVERSE_REFERENCE = {
             angle=28.55341614233909, mr_mae=0.23219199385493994),
 }
 BWD_REL = 2.0 ** -6              # K2 bwd vs plain, rel. to max|ref|
-# K2's log-sum-exp vs the plain one of its own bf16-staged Q, absolute:
-# 9.5e-7-1.9e-6 read on the H100, 1.3e-3-6.7e-3 more against f32 Q
+# K2's log-sum-exp vs the plain f32 one of its bf16 inputs, absolute (K2
+# takes the f32 scores of its bf16 inputs, scaled in f32)
 LSE_ABS = 2.0 ** -14
+K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
@@ -333,12 +340,11 @@ def attn_case(torch, F, timer, gen, case, kernel="flash_attention",
 def attn_bwd_case(torch, F, timer, gen, case):
     """K2 bwd at (q shape, k shape): dQ, dK, dV against the plain backward
     on the same bf16 inputs, O and log-sum-exp from the K2 forward (whose
-    log-sum-exp is held against the plain one, and whose output must be
-    the serving launch's, bit for bit); the times."""
+    log-sum-exp is held against the plain f32 one of its bf16 inputs, and
+    whose output must be the serving launch's, bit for bit); the times."""
     from unirenderer_tpu_torch.ops.flash_attention import (
         attention_backward_reference, attention_lse_reference,
         flash_attention, flash_attention_backward, flash_attention_with_lse,
-        staged_lse_reference,
     )
     qs, ks = case
     q = torch.randn(qs, generator=gen, device="cuda").bfloat16()
@@ -347,10 +353,7 @@ def attn_bwd_case(torch, F, timer, gen, case):
     do = torch.randn(qs, generator=gen, device="cuda").bfloat16()
     o, lse = flash_attention_with_lse(q, k, v)
     same_o = bool(torch.equal(o, flash_attention(q, k, v)))
-    lse_err = (lse - staged_lse_reference(q, k)).abs().max().item()
-    # the part of the plain f32 version's distance that is Q's bf16 staging
-    lse_rounding = (lse - attention_lse_reference(q, k, v)[1]
-                    ).abs().max().item()
+    lse_err = (lse - attention_lse_reference(q, k, v)[1]).abs().max().item()
     got = flash_attention_backward(q, k, v, o, lse, do)
     # dQ's f32 sums are atomic adds in no fixed order (and dK, dV's where
     # the kernel splits the query tiles): a second run on the same inputs
@@ -386,7 +389,7 @@ def attn_bwd_case(torch, F, timer, gen, case):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(kernel="flash_attention_backward",
                 shape=[list(qs), list(ks)], errs=errs, lse_err=lse_err,
-                lse_tol=LSE_ABS, lse_rounding=lse_rounding, rerun_diff=rerun,
+                lse_tol=LSE_ABS, rerun_diff=rerun,
                 forward_bit_identical=same_o, ok=ok,
                 max_abs_err=max(e for e, _ in errs.values()),
                 tol=min(t for _, t in errs.values()), ms=ms,
@@ -395,12 +398,12 @@ def attn_bwd_case(torch, F, timer, gen, case):
                 bound_by="operations" if flop_ms >= byte_ms else "bytes")
 
 
-def k2_staging_spread(torch, draws=4):
-    """K2's open staging fault, shown rather than gated: it stages
-    bf16(q * scale * log2 e) where the plain version (and JAX) scale f32
-    scores, so its error against its gate moves with the draw.  K2 at
-    (2,4096,8,40) on `draws` fresh draws from a generator of their own
-    (no phase-2 case's inputs move) -> each draw's err / tol."""
+def k2_fresh_draws(torch, draws=K2_FRESH_DRAWS):
+    """K2 at (2,4096,8,40) on `draws` fresh draws from a generator of
+    their own (no phase-2 case's inputs move) -> each draw's err / tol
+    against the plain version, gated at 1.  Before K2 scaled its f32
+    scores (as JAX does) it staged bf16(q * scale * log2 e), and its error
+    crossed the gate on about one draw in four."""
     from unirenderer_tpu_torch.ops.flash_attention import (
         attention_reference, flash_attention,
     )
@@ -490,8 +493,7 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
             + (f"{r['options']} " if r.get("options") else "")
             + (" ".join(f"{n} {e:.3g}/{t:.3g}"
                         for n, (e, t) in r["errs"].items())
-               + f" lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} (bf16 Q "
-               f"{r['lse_rounding']:.3g}) bit-identical "
+               + f" lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} bit-identical "
                f"fwd {int(r['forward_bit_identical'])} rerun diff "
                f"{r['rerun_diff']:.3g}/{r['tol']:.3g} "
                if "errs" in r else "")
@@ -643,25 +645,42 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
 )
 
 
-def profile_request(torch, request):
-    """Device time by kernel class over one full request (torch.profiler,
-    device kernels only), against the wall of the profiled call."""
+def profiled(torch, fn):
+    """torch.profiler (host and device) over one synced fn() -> (the
+    session's device events, fn's wall in ms).  After an earlier session in
+    the same process a session has lost the device events at its very
+    start (seen on the H100: the first 4 of K4's 5 operations, a few
+    elementwise kernels of a request), so spin kernels and a pause come
+    first; their events are dropped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        request()
+        for _ in range(16):
+            torch.cuda._sleep(PAD_CYCLES // 100)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
+        time.sleep(0.05)
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and "spin_kernel" not in e.key]
+    return events, wall_ms
+
+
+def profile_request(torch, request):
+    """Device time by kernel class over one full request (torch.profiler,
+    device kernels only), against the wall of the profiled call."""
+    events, wall_ms = profiled(torch, request)
     # device kernels only: a user annotation (the optimizer's
     # "Optimizer.step#AdamW.step") spans kernels that are counted already
     kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
+               for e in events
+               if not getattr(e, "is_user_annotation", False)]
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     by_class, count_by_class = {}, {}
@@ -670,7 +689,7 @@ def profile_request(torch, request):
                     if any(x in key for x in subs)), "elementwise / copy")
         by_class[cls] = by_class.get(cls, 0.0) + ms
         count_by_class[cls] = count_by_class.get(cls, 0) + n
-    syncs = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+    syncs = sum(e.count for e in events if "DtoH" in e.key)
     log(f"  profile of one request batch: wall {wall_ms:.1f} ms (profiler "
         f"on), device busy {busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}%"
         f", device-to-host copies {syncs}")
@@ -845,27 +864,20 @@ def deformed_spheres(torch, views, sphere_res, v_pad, t_pad, seed):
 
 
 def rast_bound(torch, pos, tri, h, w, peel):
-    """Least time for the work: the per-triangle records in (64 B each)
-    and the outputs out (16 B a pixel; prev_z in, 4 B) at the HBM rate, or
-    the edge tests the 16x16 tile bins imply (every pixel of every tile a
-    live triangle's box overlaps, 12 f32 operations each) at the f32 rate,
-    whichever is larger."""
-    from unirenderer_tpu_torch.ops.rasterize import _setup
-    rec, box = _setup(pos, tri, h, w)
-    nb, t = tri.shape[:2]
-    live = rec[..., 9] != 0
-    box = torch.where(live[..., None], box, torch.zeros_like(box))
-    n_tx, n_ty = -(-w // RAST_TILE), -(-h // RAST_TILE)
-
-    def tiles(lo, hi, n):
-        first = torch.floor(lo / RAST_TILE).clamp(min=0)
-        last = (torch.ceil(hi / RAST_TILE) - 1).clamp(max=n - 1)
-        return (last - first + 1).clamp(min=0)
-
-    per_tri = tiles(box[..., 0], box[..., 1], n_tx) * tiles(
-        box[..., 2], box[..., 3], n_ty)
-    tests = float((per_tri * live).sum().item()) * RAST_TILE * RAST_TILE
-    nbytes = nb * t * 64 + nb * h * w * (16 + (4 if peel else 0))
+    """Least time for the work: the clip positions and triangles in and the
+    outputs out (16 B a pixel; prev_z in, 4 B) at the HBM rate, or the edge
+    tests of this input (each live triangle at every pixel centre its
+    screen box holds, the pixels the raster tests it at; 12 f32 operations
+    each) at the f32 rate, whichever is larger."""
+    from unirenderer_tpu_torch.ops.rasterize import _setup, pixel_ranges
+    _, box = _setup(pos, tri, h, w)
+    xl, xh, yl, yh, live = pixel_ranges(box, h, w)
+    tests = float(torch.where(live, (xh - xl + 1) * (yh - yl + 1),
+                              0.0).sum().item())
+    nb = tri.shape[0]
+    nbytes = (pos.numel() * pos.element_size()
+              + tri.numel() * tri.element_size()
+              + nb * h * w * (16 + (4 if peel else 0)))
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = tests * RAST_TEST_FLOPS / FP32_FLOPS * 1e3
     return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else
@@ -877,6 +889,7 @@ def rast_case(torch, timer, name, pos, tri, h, w, prev_z=None):
         match_stats, rasterize, rasterize_reference, within_rule,
     )
     got = rasterize(pos, tri, h, w, prev_z=prev_z)
+    torch.cuda.synchronize()          # a fault here is the kernel's
     want = rasterize_reference(pos, tri, h, w, prev_z=prev_z)
     torch.cuda.synchronize()
     stats = match_stats(got, want)
@@ -889,10 +902,62 @@ def rast_case(torch, timer, name, pos, tri, h, w, prev_z=None):
                                            prev_z is not None)
     return dict(kernel="rasterize", case=name,
                 shape=[tri.shape[0], pos.shape[1], tri.shape[1], h, w],
-                peel=prev_z is not None, ok=within_rule(stats), **stats,
+                peel=prev_z is not None,
+                ok=within_rule(stats) and stats["bit_equal"], **stats,
                 max_abs_err=max(stats["z_err"], stats["uv_err"]),
                 coverage=hits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, edge_tests=tests, library_ms=None)
+
+
+def rast_setup_and_bins(torch, pos, tri, h, w):
+    """The set-up kernel's records and boxes against `_setup`, bit for bit
+    (as int32 views), and the kernels' tile lists against
+    `rast_bins_reference` (each list sorted: the fill's atomics order it),
+    on one call's workspace."""
+    from unirenderer_tpu_torch.ops.rasterize import (
+        TILE, _setup, rast_bins_reference, rasterize_with_bins,
+    )
+    _, rec, box, bins = rasterize_with_bins(pos, tri, h, w)
+    torch.cuda.synchronize()
+    want_rec, want_box = _setup(pos, tri, h, w)
+    want = rast_bins_reference(want_box, h, w)
+    n_tiles = -(-w // TILE) * -(-h // TILE)
+    # each slot's tile, then (tile, triangle) keys in order
+    slot_tile = torch.searchsorted(
+        bins.start[1:].long(),
+        torch.arange(bins.pairs.numel(), device=pos.device), right=True)
+    key = torch.sort(slot_tile * tri.shape[1] + bins.pairs.long()).values
+    want_slot = torch.searchsorted(
+        want.start[1:].long(),
+        torch.arange(want.pairs.numel(), device=pos.device), right=True)
+    want_key = want_slot * tri.shape[1] + want.pairs.long()
+    wide_equal = torch.equal(bins.wide_count, want.wide_count) and all(
+        torch.equal(torch.sort(bins.wide[b, :int(n)]).values,
+                    want.wide[b, :int(n)])
+        for b, n in enumerate(want.wide_count.tolist()))
+    out = dict(
+        records_bit_equal=bool(torch.equal(rec.view(torch.int32),
+                                           want_rec.view(torch.int32))),
+        boxes_bit_equal=bool(torch.equal(box.view(torch.int32),
+                                         want_box.view(torch.int32))),
+        starts_equal=bool(torch.equal(bins.start, want.start)),
+        lists_equal=bool(torch.equal(key, want_key)) and wide_equal,
+        pairs=int(bins.pairs.numel()), wide=want.wide_count.tolist(),
+        tiles=n_tiles * tri.shape[0],
+        live=int((want_rec[..., 9] != 0).sum().item()))
+    out["ok"] = all(out[k] for k in ("records_bit_equal", "boxes_bit_equal",
+                                     "starts_equal", "lists_equal"))
+    return out
+
+
+def rast_device_kernels(torch, pos, tri, h, w):
+    """(name, count, device ms) of every device operation one wrapper
+    call runs (torch.profiler: kernels and the memset)."""
+    from unirenderer_tpu_torch.ops.rasterize import rasterize
+    rasterize(pos, tri, h, w)
+    events, _ = profiled(torch, lambda: rasterize(pos, tri, h, w))
+    return [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in events]
 
 
 def rast_signatures(cfg):
@@ -908,9 +973,30 @@ def rast_signatures(cfg):
     return out
 
 
+def full_screen_and_degenerate(torch, pos, tri):
+    """Two views of the flagship's shape: a triangle over the whole screen
+    (wide: in every tile's walk) in front of the first view's spheres,
+    and a mesh of degenerate, behind-the-eye and padding triangles only."""
+    big = torch.tensor([[-1.0, -1.0, -0.5, 1.0], [3.0, -1.0, -0.5, 1.0],
+                        [-1.0, 3.0, -0.5, 1.0]], device=pos.device)
+    n_v = pos.shape[1]
+    full_pos = pos[:1].clone()
+    full_pos[0, n_v - 3:] = big
+    full_tri = tri[:1].clone()
+    full_tri[0, -1] = torch.tensor([n_v - 3, n_v - 2, n_v - 1])
+    degen_tri = tri[:1].clone()
+    degen_tri[0, :, 1] = degen_tri[0, :, 0]        # every index repeated
+    degen_pos = pos[:1].clone()
+    degen_pos[0, :, 3] = -degen_pos[0, :, 3].abs()  # and behind the eye
+    return (full_pos, full_tri), (degen_pos.contiguous(),
+                                  degen_tri.contiguous())
+
+
 def phase_rasterize(torch, cfg, timer):
     """K4 at the flagship collate's shape, the small() collate's shape, a
-    peel layer and a ragged size."""
+    peel layer, a ragged size, a full-screen triangle and an all-degenerate
+    mesh; the set-up and the tile lists at the flagship collate; device
+    kernels a call."""
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.ops.rasterize import rasterize_reference
     d, s = cfg.data, config.small().data
@@ -928,6 +1014,10 @@ def phase_rasterize(torch, cfg, timer):
     pos_s, tri_s = deformed_spheres(torch, 2, 32, s.v_pad, s.t_pad, SEED + 1)
     cases.append(rast_case(torch, timer, "small collate", pos_s, tri_s,
                            small, small))
+    (fp, ft), (dp, dt) = full_screen_and_degenerate(torch, pos, tri)
+    cases.append(rast_case(torch, timer, "full screen", fp, ft, flag, flag))
+    cases.append(rast_case(torch, timer, "all degenerate", dp, dt, flag,
+                           flag))
     for r in cases:
         log(f"  rasterize {r['case']:16s} {json.dumps(r['shape'])} "
             f"coverage {r['coverage']:.3f}: cover diff "
@@ -937,9 +1027,35 @@ def phase_rasterize(torch, cfg, timer):
             f"{'ok' if r['ok'] else 'FAIL'}  kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f}  bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}; {r['edge_tests']:.3g} edge tests)")
+    check(cases[-2]["coverage"] == 1.0, "the full-screen triangle left a "
+          "pixel uncovered")
+    check(cases[-1]["coverage"] == 0.0, "a degenerate triangle covered a "
+          "pixel")
+    setup = rast_setup_and_bins(torch, pos, tri, flag, flag)
+    log(f"  set-up kernel at the flagship collate: records bit-equal "
+        f"{int(setup['records_bit_equal'])}, boxes bit-equal "
+        f"{int(setup['boxes_bit_equal'])}, list offsets equal "
+        f"{int(setup['starts_equal'])}, tile lists equal "
+        f"{int(setup['lists_equal'])}: {setup['live']} live triangles, "
+        f"{setup['pairs']} (triangle, tile) pairs over {setup['tiles']} "
+        f"tiles, wide {setup['wide']}")
+    kernels = rast_device_kernels(torch, pos, tri, flag, flag)
+    n_ops = sum(c for _, c, _ in kernels)
+    log(f"  device operations a call: {n_ops} ("
+        + ", ".join(f"{k[:48]} x{c} {ms:.4f} ms" for k, c, ms in kernels)
+        + "; profiler, no L2 flush)")
+    for r in cases:
+        r["device_ops_per_call"] = n_ops
+    cases[0]["setup"] = setup
+    cases[0]["device_ops"] = kernels
     torch.cuda.empty_cache()
     bad = [r["case"] for r in cases if not r["ok"]]
-    check(not bad, f"rasterize cases outside the rule: {bad}")
+    check(not bad, f"rasterize cases outside the rule or not bit-equal: "
+          f"{bad}")
+    check(setup["ok"], f"the set-up kernel or its tile lists differ: {setup}")
+    check(n_ops <= 5 and sum(c for k, c, _ in kernels if "rast_" in k) == 4,
+          f"rasterize ran {n_ops} device operations a call, not its memset "
+          f"and 4 kernels: {kernels}")
     return cases
 
 
@@ -997,23 +1113,13 @@ def flagship_items(torch, cfg, rng):
 def collate_profile(torch, items, d):
     """Device time of one warm collate (torch.profiler): total busy, the
     rasterizer kernel's, and the wall of the profiled call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from unirenderer_tpu_torch.data.objaverse import collate_render
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        collate_render(items, resolution=d.resolution, ssaa=d.ssaa,
-                       device="cuda")
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [(e.self_device_time_total / 1e3, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    events, wall_ms = profiled(
+        torch, lambda: collate_render(items, resolution=d.resolution,
+                                      ssaa=d.ssaa, device="cuda"))
+    kernels = [(e.self_device_time_total / 1e3, e.key) for e in events]
     busy = sum(ms for ms, _ in kernels)
-    k4 = sum(ms for ms, key in kernels if "rast_tile_kernel" in key)
+    k4 = sum(ms for ms, key in kernels if "rast_" in key and "_kernel" in key)
     top = sorted(kernels, reverse=True)[:8]
     return dict(wall_ms=wall_ms, device_busy_ms=busy, k4_device_ms=k4,
                 top=[dict(ms=ms, name=key[:90]) for ms, key in top])
@@ -1474,6 +1580,70 @@ def kernels_line(results, launches):
     return {"kernels": out}
 
 
+def phase2_cases(cfg):
+    """Phase 2's cases in the order it runs them, from the kernels' calls
+    on the flagship paths: K1 and K2 at every call of phases 3, 6, 8 and
+    10 (batch 2), the routes at every tileable self-attention shape, K2 bwd
+    at every training attention shape, plus ragged cases; and the call
+    signatures each wrapper's main-path calls must come from."""
+    from unirenderer_tpu_torch.ops.flash_attention import tileable
+    from unirenderer_tpu_torch.pipelines import (
+        inverse_kernel_cases, kernel_cases,
+    )
+    from unirenderer_tpu_torch.train.train_step import train_kernel_cases
+    gn_cases, attn_cases = set(), set()
+    res = cfg.vae.sample_size
+    train_gn, train_attn = train_kernel_cases(cfg, 2, res)      # phase 10
+    for gn, attn in (kernel_cases(cfg, 2, res, False),           # phase 3
+                     kernel_cases(cfg, 2, res, True),            # phase 6
+                     inverse_kernel_cases(cfg, 2, res,           # phase 8
+                                          INVERSE_ENSEMBLE),
+                     (train_gn, train_attn)):
+        gn_cases |= gn
+        attn_cases |= attn
+    routed = sorted((q, k) for q, k in attn_cases
+                    if q == k and tileable(q[1], k[1], q[3]))
+    # the two routes at every tileable self-attention shape; K3 under all
+    # four flag combinations there (randn inputs: without the running max
+    # the scaled logits stay far below exp2's range) and at a ragged shape.
+    # The cases that K3 gained with its redesign run after the earlier
+    # ones (`later_routes`).
+    route_cases = ([("splash_attention", c, {}) for c in routed]
+                   + [("attn_kernel", c, {}) for c in routed]
+                   + [("attn_kernel", c, {"running_max": False})
+                      for c in routed]
+                   + [("attn_kernel", c, {"pipelined": False})
+                      for c in routed if c[0][0] == 2])
+    ragged_k3 = ((1, 200, 3, 24), (1, 77, 3, 24))
+    later_routes = ([("attn_kernel", c, {"pipelined": False})
+                     for c in routed if c[0][0] != 2]
+                    + [("attn_kernel", c,
+                        {"pipelined": False, "running_max": False})
+                       for c in routed]
+                    + [("attn_kernel", ragged_k3, f) for f in (
+                        {}, {"running_max": False}, {"pipelined": False},
+                        {"pipelined": False, "running_max": False})])
+    ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
+                 ((1, 33, 31, 1920), 32, 1e-6, False)]
+    ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
+                   ((1, 77, 3, 24), (1, 200, 3, 24))]
+    return dict(
+        gn_cases=gn_cases, attn_cases=attn_cases, train_attn=train_attn,
+        route_cases=route_cases, later_routes=later_routes,
+        # K1 with the model's bf16 parameters at every signature and the
+        # ragged ones, and with f32 parameters (the trainer's f32 path, the
+        # CPU) at the ragged ones and the headline (last)
+        gn_jobs=[(c, "bfloat16") for c in sorted(gn_cases) + ragged_gn],
+        later_gn=[(c, "float32") for c in ragged_gn + [GN_HEADLINE]],
+        attn_jobs=sorted(attn_cases) + ragged_attn,
+        bwd_jobs=sorted(train_attn) + ragged_attn,
+        checked={"groupnorm_silu": set(gn_cases),
+                 "flash_attention": set(attn_cases),
+                 "flash_attention_backward": set(train_attn),
+                 "splash_attention": set(routed),
+                 "attn_kernel": set(routed)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1491,13 +1661,8 @@ def main(argv=None) -> int:
     try:
         from unirenderer_tpu_torch.core import config
         from unirenderer_tpu_torch.ops import _build
-        from unirenderer_tpu_torch.ops.flash_attention import tileable
-        from unirenderer_tpu_torch.pipelines import (
-            inverse_kernel_cases, kernel_cases,
-        )
-        from unirenderer_tpu_torch.train.train_step import (
-            train_kernel_cases,
-        )
+        import unirenderer_tpu_torch.pipelines  # noqa: F401
+        import unirenderer_tpu_torch.train.train_step  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr, flush=True)
@@ -1534,43 +1699,9 @@ def main(argv=None) -> int:
                                                ptxas=report)
 
         cfg = config.flagship()
-        gn_cases, attn_cases = set(), set()
-        res = cfg.vae.sample_size
-        train_gn, train_attn = train_kernel_cases(cfg, 2, res)  # phase 10
-        for gn, attn in (kernel_cases(cfg, 2, res, False),       # phase 3
-                         kernel_cases(cfg, 2, res, True),        # phase 6
-                         inverse_kernel_cases(cfg, 2, res,       # phase 8
-                                              INVERSE_ENSEMBLE),
-                         (train_gn, train_attn)):
-            gn_cases |= gn
-            attn_cases |= attn
-        routed = sorted((q, k) for q, k in attn_cases
-                        if q == k and tileable(q[1], k[1], q[3]))
-        # the two routes at every tileable self-attention shape; K3 under
-        # all four flag combinations there (randn inputs: without the
-        # running max the scaled logits stay far below exp2's range) and at
-        # a ragged shape.  The cases that K3 gained with its redesign run
-        # after the earlier ones (`later_routes`).
-        route_cases = ([("splash_attention", c, {}) for c in routed]
-                       + [("attn_kernel", c, {}) for c in routed]
-                       + [("attn_kernel", c, {"running_max": False})
-                          for c in routed]
-                       + [("attn_kernel", c, {"pipelined": False})
-                          for c in routed if c[0][0] == 2])
-        ragged_k3 = ((1, 200, 3, 24), (1, 77, 3, 24))
-        later_routes = ([("attn_kernel", c, {"pipelined": False})
-                         for c in routed if c[0][0] != 2]
-                        + [("attn_kernel", c,
-                            {"pipelined": False, "running_max": False})
-                           for c in routed]
-                        + [("attn_kernel", ragged_k3, f) for f in (
-                            {}, {"running_max": False}, {"pipelined": False},
-                            {"pipelined": False, "running_max": False})])
-        checked = {"groupnorm_silu": set(gn_cases),
-                   "flash_attention": set(attn_cases),
-                   "flash_attention_backward": set(train_attn),
-                   "splash_attention": set(routed),
-                   "attn_kernel": set(routed)}
+        cases = phase2_cases(cfg)
+        gn_cases, attn_cases = cases["gn_cases"], cases["attn_cases"]
+        checked = cases["checked"]
         # ---- 2: kernels against their plain versions
         results = []
         if 2 in phases:
@@ -1583,29 +1714,20 @@ def main(argv=None) -> int:
                 f"{len(gn_cases)} GroupNorm (bf16 parameters; f32 at the "
                 f"ragged and headline cases) + {len(attn_cases)} attention "
                 f"main-path cases + ragged, "
-                f"{len(route_cases) + len(later_routes)} route cases, "
-                f"{len(train_attn)} attention backward cases + ragged "
-                f"(tolerance 2^-6 * max|ref|)")
-            ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
-                         ((1, 33, 31, 1920), 32, 1e-6, False)]
-            # K1 with the model's bf16 parameters at every signature and
-            # the ragged ones, and with f32 parameters (the trainer's f32
-            # path, the CPU) at the ragged ones and the headline (last)
-            gn_jobs = [(c, "bfloat16") for c in sorted(gn_cases) + ragged_gn]
-            later_gn = [(c, "float32") for c in ragged_gn + [GN_HEADLINE]]
-            ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
-                           ((1, 77, 3, 24), (1, 200, 3, 24))]
+                f"{len(cases['route_cases']) + len(cases['later_routes'])} "
+                f"route cases, {len(cases['train_attn'])} attention "
+                f"backward cases + ragged (tolerance 2^-6 * max|ref|)")
             timer = Timer(torch)
             results = phase_kernels(
-                torch, F, timer, gn_jobs,
-                sorted(attn_cases) + ragged_attn, route_cases,
-                sorted(train_attn) + ragged_attn, later_routes, later_gn)
+                torch, F, timer, cases["gn_jobs"], cases["attn_jobs"],
+                cases["route_cases"], cases["bwd_jobs"],
+                cases["later_routes"], cases["later_gn"])
             del timer
-            spread = k2_staging_spread(torch)
-            log("  K2's staging fault (open; not gated): err / tol at "
-                "(2,4096,8,40) on fresh draws "
-                + " ".join(f"{x:.3f}" for x in spread))
-            record["k2_staging_spread"] = spread
+            fresh = k2_fresh_draws(torch)
+            log(f"  K2 err / tol at (2,4096,8,40) on {len(fresh)} fresh "
+                "draws " + " ".join(f"{x:.3f}" for x in fresh))
+            record["k2_fresh_draws"] = fresh
+            check(max(fresh) <= 1.0, "K2 out of tolerance on a fresh draw")
             host = wrapper_host_us(torch)
             log("  host time a wrapper call at (2,1024,8,80): "
                 + ", ".join(f"{n} {us:.1f} us" for n, us in host.items())

@@ -9,9 +9,8 @@ with the plain versions on the CPU) against the JAX package, in float32.
     the kernel and the reference); and against autograd of
     `attention_reference` at a cross-attention shape (Sk = 77) and at
     D = 160, to 1e-5 * max (the same f32 function, two algorithms);
-  * the forward's log-sum-exp against `torch.logsumexp`, to 1e-6, and
-    the kernel-staged one (bf16 Q, as the card's check holds K2 to)
-    within the bound of Q's rounding;
+  * the forward's log-sum-exp against `torch.logsumexp`, to 1e-6 (the
+    card holds K2's own against it, on its bf16 inputs);
   * K1: the Function's gradient against `jax.vjp` of the JAX
     `fused_groupnorm_silu` (its custom VJP differentiates the plain
     version, as the port's backward does), to 1e-5 * max;
@@ -42,7 +41,6 @@ from unirenderer_tpu_torch.models.layers import attention
 from unirenderer_tpu_torch.ops.flash_attention import (
     attention_backward_reference, attention_lse_reference,
     attention_reference, flash_attention, flash_attention_backward,
-    staged_lse_reference,
 )
 from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
 
@@ -120,21 +118,6 @@ def test_lse_reference():
     assert lse.shape == (2, 3, 50) and lse.dtype == torch.float32
     assert_rel_close(lse, torch.logsumexp(s, -1).numpy(), 1e-6, "lse")
     assert_rel_close(o, attention_reference(tq, tk, tv).numpy(), 1e-5, "o")
-
-
-def test_staged_lse_reference_is_the_bf16_rounding_of_q():
-    """The kernel-staged plain log-sum-exp differs from the f32 one by Q's
-    bf16 rounding only: each logit moves by at most 2^-9 (bf16's unit
-    roundoff) * sum_d |q_d k_d| / sqrt(D), plus f32 slack of 1e-5."""
-    q, k = _arrays(15, (2, 50, 3, 24), (2, 77, 3, 24))
-    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
-    got = staged_lse_reference(tq, tk)
-    want = attention_lse_reference(tq, tk, tk)[1]
-    bound = 2.0 ** -9 * torch.einsum("bshd,bthd->bhs", tq.abs(),
-                                     tk.abs()).max() / np.sqrt(24)
-    diff = (got - want).abs().max()
-    assert got.shape == want.shape and got.dtype == torch.float32
-    assert 0 < diff <= bound + 1e-5, (diff, bound)
 
 
 def test_no_graph_without_grad():

@@ -1,15 +1,18 @@
-"""K1 (GroupNorm+SiLU) and K3 (unet_flash) as the redesigned kernels read
-their inputs, on the CPU: K1's plain version with the model's bf16
-parameters against the JAX package's reference, the plain mirror of K1's
-statistics (its row ranges and merge order) against two-pass statistics
-where the one-pass form fails, and the Q that K3 stages against the JAX
-route's pre-scale.  The kernels themselves run on the card
-(tests/test_torch_card.py).
+"""K1 (GroupNorm+SiLU), K2 (flash) and K3 (unet_flash) as the redesigned
+kernels read their inputs, on the CPU: K1's plain version with the model's
+bf16 parameters against the JAX package's reference, the plain mirror of
+K1's statistics (its row ranges and merge order) against two-pass
+statistics where the one-pass form fails, the Q that K3 stages against the
+JAX route's pre-scale, and K2's score arithmetic (f32 scores of the bf16
+inputs, scaled in f32) against the JAX library kernel, where the staging
+of bf16(q * scale * log2 e) it replaced fails.  The kernels themselves run
+on the card (tests/test_torch_card.py).
 
 Tolerances: K1 against JAX 1e-5 * max|ref| in f32 (the same formula, f32
 reductions in another order); the chunked statistics within 1e-6 of the
 mean's size and 1e-5 relative of the variance, computed in f64 (the mirror
-sums in f32); Q's staging bit for bit.
+sums in f32); Q's staging bit for bit; K2's scores 2^-14 * max|ref| (see
+the test).
 """
 
 import math
@@ -18,8 +21,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from tests.torch_port_helpers import assert_rel_close
+from unirenderer_tpu.ops.flash_attention import tpu_flash_attention
 from unirenderer_tpu.ops.groupnorm import (
     groupnorm_silu_reference as jax_groupnorm,
 )
@@ -107,3 +112,42 @@ def test_k3_staged_q_is_the_jax_prescale(d):
     np.testing.assert_array_equal(staged.float().numpy(), want)
     # the plain version's pre-scale is the same
     assert torch.equal(k3.prescale_q(qt, k3._factor(d)), staged)
+
+
+def _k2_mirror(q, k, v, staged_q):
+    """Plain mirror of K2's softmax(Q K^T / sqrt(D)) V over (B, S, H, D)
+    bf16 inputs in log2 units, the rest in f32: with `staged_q`, the
+    arithmetic before the repair (Q staged as bf16(q * log2(e)/sqrt(D)),
+    the product rounded from f32, then f32 products); without it, the
+    kernel's now (f32 products of the bf16 Q, times the f32 factor
+    log2(e)/sqrt(D), csrc/mma_bf16.cuh `score_scale`)."""
+    factor = torch.tensor(math.log2(math.e) / math.sqrt(q.shape[-1]),
+                          dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if staged_q:
+        s2 = torch.einsum("bshd,bthd->bhst", (qf * factor).bfloat16().float(),
+                          kf)
+    else:
+        s2 = torch.einsum("bshd,bthd->bhst", qf, kf) * factor
+    p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    return torch.einsum("bhst,bthd->bshd", p / p.sum(-1, keepdim=True), vf)
+
+
+def test_k2_scales_f32_scores_as_the_jax_library_kernel():
+    """JAX's `tpu_flash_attention` (the library Pallas kernel, interpreted,
+    at tests/test_torch_attention_grad.py's (1, 128, 2, 40), seed 11)
+    multiplies the f32 scores of its inputs by sm_scale.  On bf16 values
+    (given to it as f32, so its output is not rounded) the repaired score
+    arithmetic reads 5.9e-7 * max|jax| and the old staging of the scaled Q
+    in bf16 2.1e-3 * max|jax| (seeds 12-14: <= 4.1e-7 against 2.1e-3 to
+    4.7e-3).  The tolerance 2^-14 = 6.1e-5 lies between them."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 40)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(tpu_flash_attention(
+            *(jnp.asarray(x.float().numpy()) for x in (q, k, v))))
+    tol = 2.0 ** -14 * np.abs(want).max()
+    new = np.abs(_k2_mirror(q, k, v, staged_q=False).numpy() - want).max()
+    old = np.abs(_k2_mirror(q, k, v, staged_q=True).numpy() - want).max()
+    assert new <= tol < old, (new, old, tol)

@@ -16,8 +16,11 @@
 // warpgroups, K/V through a 4-stage cp.async ring in wgmma's core-matrix
 // layout, wgmma.mma_async for S = Q K^T and O += P V with the softmax of a
 // tile overlapping the P V of the one before), (batch, head) pairs
-// batch-major; Q is staged as bf16(q * softmax_scale * log2(e)) (as the
-// TPU's K3 does), so the softmax uses exp2 directly.  Under autograd the
+// batch-major.  Q is staged as the bf16 input itself and the f32 scores
+// are scaled by one f32 factor, softmax_scale * log2(e), inside the
+// exponent (exp2(s * sscale - m), one fmaf a score), as the JAX library
+// kernel multiplies its f32 scores by `sm_scale`; the softmax runs in log2
+// units.  Under autograd the
 // wrapper calls `flash_attn_forward_lse`, the same kernel with the tile's
 // kLse flag, which also writes each row's log-sum-exp (f32, (B, H, Sq))
 // for the backward (flash_attention_bwd.cu); `flash_attn_forward`
@@ -46,10 +49,10 @@ __global__ void __launch_bounds__(attn::kTileThreads,
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int batch,
                  int heads, int sq, int sk, int d, attn::Strides st,
-                 float qscale, float* __restrict__ lse) {
+                 float sscale, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   attn::flash_tile<DP, false, kLse>(smem_raw, q, k, v, o, batch, heads, sq,
-                                    sk, d, st, qscale, lse);
+                                    sk, d, st, 1.f, sscale, lse);
 }
 
 template <int DP, bool kLse>
@@ -66,10 +69,10 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const float qscale = 1.4426950408889634f / sqrtf((float)d);
+  const float sscale = attn::score_scale(d);
   const dim3 grid((sq + attn::kTileM - 1) / attn::kTileM, batch * heads);
   flash_fwd_kernel<DP, kLse><<<grid, attn::kTileThreads, smem, stream>>>(
-      q, k, v, o, batch, heads, sq, sk, d, st, qscale, lse);
+      q, k, v, o, batch, heads, sq, sk, d, st, sscale, lse);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@
 // training step differentiates here under the default attention route.
 //
 // What it computes, from Q, K, V, O, dO (B, S, H, D) and the forward's
-// per-row log-sum-exp L (B, H, Sq), with z = Q K^T / sqrt(D):
+// per-row log-sum-exp L (B, H, Sq), with z = Q K^T / sqrt(D) (the f32
+// scores of the bf16 inputs, scaled in f32, as the forward computes them):
 //     P = exp(z - L)        dV = P^T dO        dP = dO V^T
 //     Delta = rowsum(dO * O)   dS = P * (dP - Delta)
 //     dQ = dS K / sqrt(D)   dK = dS^T Q / sqrt(D)
@@ -26,20 +27,19 @@
 // Design, three launches on the caller's stream (five when the query tiles
 // are split, see 2.):
 //   1. `bwd_prep_kernel`, one warp per query row: Delta = rowsum(dO * O) in
-//      f32, and Q staged as the forward staged it, bf16(q * softmax_scale *
-//      log2(e)), into a (B*H, Sq, D) workspace, so P is recomputed from the
-//      same bits as the forward's and the main kernel copies it by cp.async;
-//      it also zeroes the f32 sums of step 2.
+//      f32; it also zeroes the f32 sums of step 2.
 //   2. `bwd_kernel`, one pass over the query tiles: a block owns 128 keys,
 //      two warpgroups of 64, with K and V staged once; it walks 64-query
-//      tiles of (staged Q, Q, dO, L, Delta) through a 2-stage cp.async ring.
+//      tiles of (Q, dO, L, Delta) through a 2-stage cp.async ring.
 //      All tiles sit in shared memory in wgmma's core-matrix layout
 //      (wgmma_bf16.cuh), filled by 16-byte copies, so every operand is read
 //      K-major or, transposed by its descriptor, MN-major: nothing is
 //      transposed element by element.  Per 64 queries (32 at D > 96, for
 //      registers) a warpgroup runs wgmma.mma_async m64nNk16:
-//        S^T = K Q^T and dP^T = V dO^T (A and B from shared memory; P^T is
-//          formed while dP^T still runs),
+//        S^T = K Q^T and dP^T = V dO^T (A and B from shared memory; P^T =
+//          exp2(S^T * softmax_scale * log2(e) - L * log2(e)), the f32
+//          scores scaled in f32 as the forward scales them, is formed while
+//          dP^T still runs),
 //        dV += P^T dO and dK += dS^T Q (A re-packed from the accumulators,
 //          kept in registers over the whole pass),
 //      and writes dS^T to shared memory.  After one barrier each warpgroup
@@ -60,7 +60,7 @@
 // DP, the next multiple of 16.
 //
 // Interface: plain C, no PyTorch headers.  The launcher allocates nothing
-// (Delta, the staged Q and the f32 sums live in caller-given workspaces),
+// (Delta and the f32 sums live in caller-given workspaces),
 // launches on the caller's stream and returns the first CUDA error.
 
 #include <math.h>
@@ -81,8 +81,8 @@ struct Bwd {
   static constexpr int kKeys = 128;                    // keys per block
   static constexpr int kThreads = 256;                 // 2 warpgroups
   static constexpr int kStepQ = DP <= 96 ? 64 : 32;    // queries per step
-  static constexpr int kTileQ = kQT * DP;              // a Qs, Q or dO tile
-  static constexpr int kStage = 3 * kTileQ;            // staged Q, Q, dO
+  static constexpr int kTileQ = kQT * DP;              // a Q or dO tile
+  static constexpr int kStage = 2 * kTileQ;            // Q, dO
   static constexpr int kSmemBytes =
       (2 * kKeys * DP + 2 * kStage + kKeys * kQT) * (int)sizeof(bf16) +
       2 * 2 * kQT * (int)sizeof(float);                // L, Delta
@@ -98,16 +98,14 @@ __device__ __forceinline__ long long row_offset(const Strides& st, int t,
   return b * st.s[t][0] + h * st.s[t][2] + r * st.s[t][1];
 }
 
-// Delta[bh, i] = sum_d dO * O; qs[bh, i, :] = bf16(q * qscale); the f32
-// sums zeroed: dQ's rows, and dK's and dV's when `zero_kv`.  One warp per
-// row (of max(Sq, Sk)), a pair per lane.
+// Delta[bh, i] = sum_d dO * O; the f32 sums zeroed: dQ's rows, and dK's
+// and dV's when `zero_kv`.  One warp per row (of max(Sq, Sk)), a pair per
+// lane.
 __global__ void __launch_bounds__(kPrepThreads)
-bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
-                const bf16* __restrict__ dout, bf16* __restrict__ qs,
+bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 float* __restrict__ delta, float* __restrict__ dq_acc,
                 float* __restrict__ dk_acc, float* __restrict__ dv_acc,
-                int heads, int sq, int sk, int d, Strides st, float qscale,
-                int zero_kv) {
+                int heads, int sq, int sk, int d, Strides st, int zero_kv) {
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int row = blockIdx.x * (kPrepThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -122,7 +120,6 @@ bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
   if (row >= sq) return;
   const bf16* op = o + row_offset(st, O, b, h, row);
   const bf16* gp = dout + row_offset(st, DO, b, h, row);
-  const bf16* qp = q + row_offset(st, Q, b, h, row);
   const long long off = ((long long)bh * sq + row) * d;
   float acc = 0.f;
   for (int c = 2 * lane; c < d; c += 64) {
@@ -131,8 +128,6 @@ bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
     const float2 gf = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(gp + c));
     acc += of.x * gf.x + of.y * gf.y;
-    *reinterpret_cast<uint32_t*>(qs + off + c) =
-        scale_bf16x2(*reinterpret_cast<const uint32_t*>(qp + c), qscale);
     *reinterpret_cast<float2*>(dq_acc + off + c) = zero;
   }
 #pragma unroll
@@ -153,11 +148,12 @@ template <int DP>
 __global__ void __launch_bounds__(Bwd<DP>::kThreads, 1)
 bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const bf16* __restrict__ qs, const float* __restrict__ lse,
+           const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dq_acc,
            float* __restrict__ dk_acc, float* __restrict__ dv_acc,
            bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq,
-           int sk, int d, Strides st, float scale, int qt_per_block) {
+           int sk, int d, Strides st, float scale, float sscale,
+           int qt_per_block) {
   using T = Bwd<DP>;
   constexpr int NT = T::kThreads;
   constexpr int KD = DP / 16;
@@ -169,7 +165,7 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [kKeys][DP] core
   bf16* sV = sK + T::kKeys * DP;                  // [kKeys][DP] core
-  bf16* sRing = sV + T::kKeys * DP;               // 2 x {Qs, Q, dO} core
+  bf16* sRing = sV + T::kKeys * DP;               // 2 x {Q, dO} core
   bf16* sdS = sRing + 2 * T::kStage;              // [kKeys][kQT] core, dS^T
   float* sF = reinterpret_cast<float*>(sdS + T::kKeys * kQT);  // 2 x {L, D}
 
@@ -187,7 +183,6 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* qb = q + b * st.s[Q][0] + h * st.s[Q][2];
   const bf16* gb = dout + b * st.s[DO][0] + h * st.s[DO][2];
-  const bf16* qsb = qs + (long long)bh * sq * d;
   const float* lse_bh = lse + (long long)bh * sq;
   const float* delta_bh = delta + (long long)bh * sq;
   float* dqa = dq_acc + (long long)bh * sq * d;
@@ -207,9 +202,8 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto stage = [&](int it, int slot) {
     const int q0 = it * kQT;
     bf16* base = sRing + slot * T::kStage;
-    load_core(base, qsb, d, q0, kQT, sq);
-    load_core(base + T::kTileQ, qb, st.s[Q][1], q0, kQT, sq);
-    load_core(base + 2 * T::kTileQ, gb, st.s[DO][1], q0, kQT, sq);
+    load_core(base, qb, st.s[Q][1], q0, kQT, sq);
+    load_core(base + T::kTileQ, gb, st.s[DO][1], q0, kQT, sq);
     float* f = sF + slot * 2 * kQT;
     for (int i = threadIdx.x; i < kQT; i += NT) {
       const bool ok = q0 + i < sq;
@@ -240,15 +234,14 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();             // for every thread; slot ^ 1 and dS^T free
     if (it + 1 < it1) stage(it + 1, slot ^ 1);
     cp_async_commit();
-    const bf16* tQs = sRing + slot * T::kStage;
-    const bf16* tQ = tQs + T::kTileQ;
+    const bf16* tQ = sRing + slot * T::kStage;
     const bf16* tdO = tQ + T::kTileQ;
     const float* tL = sF + slot * 2 * kQT;
     const float* tD = tL + kQT;
 
 #pragma unroll 1
     for (int c0 = 0; c0 < kQT; c0 += SQ) {
-      // ---- S^T = K Q^T (log2 units) and dP^T = V dO^T, 64 keys x SQ a
+      // ---- S^T = K Q^T (f32 scores) and dP^T = V dO^T, 64 keys x SQ a
       // warpgroup: A (keys) and B (queries) both K-major (k = D)
       float s[NQ][4], dp[NQ][4];
 #pragma unroll
@@ -261,7 +254,7 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < KD; ++kk) {
         wgmma_m64k16_ss<SQ, 0, 0>(
             s, smem_desc(sK + core(wg * 64, 2 * kk, DP), 128, DP * 16),
-            smem_desc(tQs + core(c0, 2 * kk, DP), 128, DP * 16), kk > 0);
+            smem_desc(tQ + core(c0, 2 * kk, DP), 128, DP * 16), kk > 0);
       }
       wgmma_commit();             // S^T: one group, dP^T the next
       wgmma_fence();
@@ -272,8 +265,9 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             smem_desc(tdO + core(c0, 2 * kk, DP), 128, DP * 16), kk > 0);
       }
       wgmma_commit();
-      // ---- P^T while dP^T runs; this thread holds keys kw+g (0,1) and
-      // kw+g+8 (2,3) at queries c0 + nt*8 + 2*t4 (+1)
+      // ---- P^T = exp2(s * sscale - L * log2 e) while dP^T runs; this
+      // thread holds keys kw+g (0,1) and kw+g+8 (2,3) at queries
+      // c0 + nt*8 + 2*t4 (+1)
       wgmma_wait<1>();
       fence_operands(s);
 #pragma unroll
@@ -281,10 +275,10 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int col = c0 + nt * 8 + t4 * 2;
         const float2 l = *reinterpret_cast<const float2*>(tL + col);
         const float l0 = l.x * kLog2e, l1 = l.y * kLog2e;
-        s[nt][0] = key_ok0 ? fast_exp2(s[nt][0] - l0) : 0.f;
-        s[nt][1] = key_ok0 ? fast_exp2(s[nt][1] - l1) : 0.f;
-        s[nt][2] = key_ok1 ? fast_exp2(s[nt][2] - l0) : 0.f;
-        s[nt][3] = key_ok1 ? fast_exp2(s[nt][3] - l1) : 0.f;
+        s[nt][0] = key_ok0 ? fast_exp2(fmaf(s[nt][0], sscale, -l0)) : 0.f;
+        s[nt][1] = key_ok0 ? fast_exp2(fmaf(s[nt][1], sscale, -l1)) : 0.f;
+        s[nt][2] = key_ok1 ? fast_exp2(fmaf(s[nt][2], sscale, -l0)) : 0.f;
+        s[nt][3] = key_ok1 ? fast_exp2(fmaf(s[nt][3], sscale, -l1)) : 0.f;
       }
       // ---- dS^T = P^T * (dP^T - Delta)
       wgmma_wait<0>();
@@ -442,10 +436,10 @@ dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ out,
 
 template <int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, bf16* qs, const float* lse, float* delta,
+           const bf16* dout, const float* lse, float* delta,
            float* dq_acc, float* dkv_acc, bf16* dq, bf16* dk, bf16* dv,
            int batch, int heads, int sq, int sk, int d, const Strides& st,
-           float scale, float qscale, cudaStream_t stream) {
+           float scale, float sscale, cudaStream_t stream) {
   using T = Bwd<DP>;
   static bool attr_set = false;
   static int sms = 0;
@@ -478,14 +472,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   bwd_prep_kernel<<<dim3((prep_rows + rows_per_block - 1) / rows_per_block,
                          bh),
                     kPrepThreads, 0, stream>>>(
-      q, o, dout, qs, delta, dq_acc, dk_acc, dv_acc, heads, sq, sk, d, st,
-      qscale, split > 1);
+      o, dout, delta, dq_acc, dk_acc, dv_acc, heads, sq, sk, d, st,
+      split > 1);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(n_kb, bh, split);
   bwd_kernel<DP><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      q, k, v, dout, qs, lse, delta, dq_acc, dk_acc, dv_acc, dk, dv,
-      heads, sq, sk, d, st, scale, per);
+      q, k, v, dout, lse, delta, dq_acc, dk_acc, dv_acc, dk, dv,
+      heads, sq, sk, d, st, scale, sscale, per);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dq_convert_kernel<<<dim3((sq + rows_per_block - 1) / rows_per_block, bh),
@@ -509,15 +503,15 @@ extern "C" {
 
 // q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Sk, H, D); all bf16 with a
 // unit stride on D.  lse: (B, H, Sq) f32, contiguous, from
-// flash_attn_forward_lse.  Workspaces: delta f32 of B*H*Sq, qs bf16 of
-// B*H*Sq*D, dq_acc f32 of B*H*Sq*D, dkv_acc f32 of 2*B*H*Sk*D; each
+// flash_attn_forward_lse.  Workspaces: delta f32 of B*H*Sq, dq_acc f32 of
+// B*H*Sq*D, dkv_acc f32 of 2*B*H*Sk*D; each
 // 16-byte aligned.  strides: 24 element strides, (batch, seq, head) for
 // q, k, v, o, dout, dq, dk, dv in that order; each a multiple of 8,
 // pointers 16-byte aligned.  Takes what the forward takes: D a multiple of
 // 8 up to 160, B * H <= 65535.
 int flash_attn_backward(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
-                        void* dq, void* dk, void* dv, float* delta, void* qs,
+                        void* dq, void* dk, void* dv, float* delta,
                         float* dq_acc, float* dkv_acc, int batch, int heads,
                         int sq, int sk, int d, const long long* strides,
                         void* stream) {
@@ -534,20 +528,19 @@ int flash_attn_backward(const void* q, const void* k, const void* v,
   const bf16* vp = reinterpret_cast<const bf16*>(v);
   const bf16* op = reinterpret_cast<const bf16*>(o);
   const bf16* gp = reinterpret_cast<const bf16*>(dout);
-  bf16* qsp = reinterpret_cast<bf16*>(qs);
   bf16* dqp = reinterpret_cast<bf16*>(dq);
   bf16* dkp = reinterpret_cast<bf16*>(dk);
   bf16* dvp = reinterpret_cast<bf16*>(dv);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf((float)d);
-  // the forward's staging factor (flash_attention.cu), to the bit
-  const float qscale = kLog2e / sqrtf((float)d);
+  // the forward's factor of the f32 scores (flash_attention.cu), to the bit
+  const float sscale = score_scale(d);
 
 #define K2B_CASE(N, DP)                                                     \
   case N:                                                                   \
-    return launch<DP>(qp, kp, vp, op, gp, qsp, lse, delta, dq_acc,         \
-                      dkv_acc, dqp, dkp, dvp, batch, heads, sq, sk, d, st,  \
-                      scale, qscale, s);
+    return launch<DP>(qp, kp, vp, op, gp, lse, delta, dq_acc, dkv_acc,     \
+                      dqp, dkp, dvp, batch, heads, sq, sk, d, st, scale,    \
+                      sscale, s);
   switch ((d + 15) / 16) {
     K2B_CASE(1, 16) K2B_CASE(2, 32) K2B_CASE(3, 48) K2B_CASE(4, 64)
     K2B_CASE(5, 80) K2B_CASE(6, 96) K2B_CASE(7, 112) K2B_CASE(8, 128)

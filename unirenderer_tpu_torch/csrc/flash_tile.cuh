@@ -32,15 +32,18 @@
 //   * key columns past Sk are set to -inf, so any Sk works; Q rows past Sq
 //     are zero and never written.
 //
-// Q is staged in registers as bf16(q * qscale), the product rounded from
-// f32.  K2 passes qscale = softmax_scale * log2(e), so its scores are in
-// log2 units.  kSplash selects K2s's two differences: qscale is
-// bf16(1/sqrt(D)), which makes the staged Q the same bits as the splash
-// route's pre-scaled Q (ops/flash_attention.py `prescale_q`: the factor
-// rounded to bf16, the product rounded to bf16), and the f32 scores are
-// taken to log2 units inside the exponent (exp2(s * log2(e) - m)); and the
-// (batch, head) pairs are walked head-major (blockIdx.y = h * B + b, the
-// library splash kernel's grid over heads with the batch inside).
+// The scores are taken to log2 units in f32: the wgmma product's f32 score
+// s is multiplied by `sscale` inside the exponent (exp2(s * sscale - m),
+// one fmaf) and in the running max.  K2 stages Q as the bf16 input itself
+// and passes sscale = softmax_scale * log2(e): the f32 scores of the bf16
+// inputs, scaled in f32, as the JAX library kernel scales them (its
+// `sm_scale`).  kSplash selects K2s's two differences: Q is staged as
+// bf16(q * qscale) with qscale = bf16(1/sqrt(D)), which makes the staged Q
+// the same bits as the splash route's pre-scaled Q (ops/flash_attention.py
+// `prescale_q`: the factor rounded to bf16, the product rounded to bf16),
+// and sscale = log2(e); and the (batch, head) pairs are walked head-major
+// (blockIdx.y = h * B + b, the library splash kernel's grid over heads
+// with the batch inside).
 //
 // kLse (K2 under autograd) also writes each row's log-sum-exp of the
 // natural-unit logits, f32, to lse[(b * heads + h) * sq + row]: the
@@ -82,7 +85,8 @@ __device__ __forceinline__ void flash_tile(
     unsigned char* smem_raw, const bf16* __restrict__ q,
     const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int batch, int heads, int sq, int sk, int d,
-    const Strides& st, float qscale, float* __restrict__ lse = nullptr) {
+    const Strides& st, float qscale, float sscale,
+    float* __restrict__ lse = nullptr) {
   constexpr int NS = kTileStages;
   constexpr int LDQ = FlashTile<DP>::kLDQ;
   constexpr int KV = FlashTile<DP>::kKV;
@@ -91,8 +95,6 @@ __device__ __forceinline__ void flash_tile(
   constexpr int ND = DP / 8;      // 8-wide output column blocks
   constexpr int NN = kTileN / 8;  // 8-wide score column blocks
   constexpr int VPR = DP / 8;     // 16-byte vectors per padded row
-  // the scores' factor to log2 units: K2's Q carries it already
-  constexpr float kToLog2 = kSplash ? 1.4426950408889634f : 1.f;
 
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [kTileM][LDQ]
   bf16* sK = sQ + kTileM * LDQ;                   // NS core-matrix tiles
@@ -204,8 +206,8 @@ __device__ __forceinline__ void flash_tile(
     float mx0 = m_run[0], mx1 = m_run[1];
 #pragma unroll
     for (int nt = 0; nt < NN; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]) * kToLog2);
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]) * kToLog2);
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]) * sscale);
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]) * sscale);
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -219,10 +221,10 @@ __device__ __forceinline__ void flash_tile(
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < NN; ++nt) {
-      s[nt][0] = fast_exp2(fmaf(s[nt][0], kToLog2, -mx0));
-      s[nt][1] = fast_exp2(fmaf(s[nt][1], kToLog2, -mx0));
-      s[nt][2] = fast_exp2(fmaf(s[nt][2], kToLog2, -mx1));
-      s[nt][3] = fast_exp2(fmaf(s[nt][3], kToLog2, -mx1));
+      s[nt][0] = fast_exp2(fmaf(s[nt][0], sscale, -mx0));
+      s[nt][1] = fast_exp2(fmaf(s[nt][1], sscale, -mx0));
+      s[nt][2] = fast_exp2(fmaf(s[nt][2], sscale, -mx1));
+      s[nt][3] = fast_exp2(fmaf(s[nt][3], sscale, -mx1));
       rs0 += s[nt][0] + s[nt][1];
       rs1 += s[nt][2] + s[nt][3];
     }
@@ -239,15 +241,17 @@ __device__ __forceinline__ void flash_tile(
     }
   };
 
-  // ---- tile 0: Q's A fragments staged as bf16(q * qscale), its scores
-  // and softmax
+  // ---- tile 0: Q's A fragments (K2s: staged as bf16(q * qscale)), its
+  // scores and softmax
   top(0);
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk) {
     ldsm_x4(qf[kk], sQ + (rw + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
+    if (kSplash) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      qf[kk][jj] = scale_bf16x2(qf[kk][jj], qscale);
+      for (int jj = 0; jj < 4; ++jj) {
+        qf[kk][jj] = scale_bf16x2(qf[kk][jj], qscale);
+      }
     }
   }
   {
@@ -293,7 +297,7 @@ __device__ __forceinline__ void flash_tile(
   }
   const int row0 = q0 + rw + g, row1 = row0 + 8;
   if (kLse && t4 == 0) {
-    // m_run and l0/l1 are in log2 units of the log2(e)-scaled logits
+    // m_run and l0/l1 are in log2 units of the scaled logits
     constexpr float kLn2 = 0.6931471805599453f;
     float* lrow = lse + (long long)(b * heads + h) * sq;
     if (row0 < sq) lrow[row0] = (m_run[0] + log2f(l0)) * kLn2;

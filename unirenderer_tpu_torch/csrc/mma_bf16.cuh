@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,6 +118,12 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   const float2 f =
       __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// softmax_scale * log2(e) = log2(e) / sqrt(D), rounded once to f32: the
+// factor by which K2 and K2 bwd take their f32 scores to log2 units
+inline float score_scale(int d) {
+  return (float)(1.4426950408889634 / sqrt((double)d));
 }
 
 }  // namespace attn

@@ -47,8 +47,9 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int batch, int heads, int sq, int sk, int d,
                   attn::Strides st, float qscale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the staged Q carries 1/sqrt(D); the f32 scores go to log2 units
   attn::flash_tile<DP, true>(smem_raw, q, k, v, o, batch, heads, sq, sk, d,
-                             st, qscale);
+                             st, qscale, 1.4426950408889634f);
 }
 
 template <int DP>

@@ -68,19 +68,6 @@ def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
-def staged_lse_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Plain log-sum-exp of the kernel's own logits (B, H, Sq), f32: Q
-    scaled by softmax_scale * log2(e) in f32 and rounded to bf16 as the
-    kernel stages it (csrc/flash_attention.cu's `qscale`), the products in
-    f32, back in natural units.  Holds the kernel's log-sum-exp apart from
-    the bf16 rounding of Q, which `attention_lse_reference` includes."""
-    qscale = (torch.tensor(1.4426950408889634, dtype=torch.float32)
-              / torch.tensor(float(q.shape[-1])).sqrt()).item()
-    qs = (q.float() * qscale).bfloat16().float()
-    s2 = torch.einsum("bshd,bthd->bhst", qs, k.float())
-    return torch.logsumexp(s2 * math.log(2.0), dim=-1)
-
-
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, o: torch.Tensor,
                                  lse: torch.Tensor, do: torch.Tensor,
@@ -125,7 +112,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attn_backward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn_backward.argtypes = [p] * 13 + [i] * 5 + [p, p]
+        lib.flash_attn_backward.argtypes = [p] * 12 + [i] * 5 + [p, p]
         lib.flash_attn_backward.restype = ctypes.c_int
     return lib
 
@@ -232,18 +219,17 @@ def _launch_backward(q, k, v, o, lse, do):
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
-    # workspaces: Delta, Q staged as the forward staged it, and the f32
-    # sums of dQ (and of dK, dV when the kernel splits the query tiles)
+    # workspaces: Delta and the f32 sums of dQ (and of dK, dV when the
+    # kernel splits the query tiles)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, sq), **f32)
-    qs = torch.empty((b * h, sq, d), dtype=q.dtype, device=q.device)
     dq_acc = torch.empty((b * h, sq, d), **f32)
     dkv_acc = torch.empty((2, b * h, sk, d), **f32)
     strides = packed_strides(q, k, v, o, do, dq, dk, dv)
     rc = _bwd_lib().flash_attn_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), qs.data_ptr(), dq_acc.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
         dkv_acc.data_ptr(), b, h, sq, sk, d, ctypes.addressof(strides),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

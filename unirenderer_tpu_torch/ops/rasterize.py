@@ -9,13 +9,16 @@ miss, all four zero there.  Screen y points down; pixel centres are at
 (x + 0.5, y + 0.5).
 
 `rasterize` takes a batch of views at once: clip positions (B, V, 4) and
-triangles (B, T, 3) (or one view, (V, 4) and (T, 3)).  The per-triangle
-set-up (`_setup`: 9 edge coefficients, twice the signed area, 3 z and 3
-1/w, the screen bounding box) is torch, shared by both versions.  On a
-CUDA tensor the wrapper then launches the hand-written kernel of
-`csrc/rasterize.cu` (one launch over the batch) and raises on anything it
-does not take; on a CPU tensor it runs `rasterize_reference`, the plain
-version, which the card check also compares the kernel with.
+triangles (B, T, 3) (or one view, (V, 4) and (T, 3)).  On a CUDA tensor
+the wrapper launches the hand-written kernels of `csrc/rasterize.cu` over
+the batch (a memset and four kernels: the per-triangle set-up of `_setup`
+with the count of each triangle's 16x16 tiles, a scan, the fill of the
+tile lists, the raster) and raises on anything they do not take; on a
+CPU tensor it runs `rasterize_reference`, the plain version, which the
+card check also compares the kernel with.  The set-up (`_setup`: 9 edge
+coefficients, twice the signed area, 3 z and 3 1/w, the screen bounding
+box) is torch in the plain version and the set-up kernel's, bit for bit;
+`rast_bins_reference` is the plain mirror of the kernels' tile lists.
 
 Every pixel keeps the lexicographic minimum of (z, triangle index) over
 the triangles that cover it (and, when peeling, lie beyond
@@ -44,9 +47,22 @@ import torch
 from unirenderer_tpu_torch.ops import _build
 
 BIG = 1e30                 # depth of "no hit"
-KERNEL_CHUNK = 256         # triangles per bin chunk in csrc/rasterize.cu
+TILE = 16                  # csrc/rasterize.cu's tile side in pixels
+MAX_BIN_TILES = 64         # a triangle on more tiles goes to its view's
+                           # wide list: the tile lists hold <= 64 a triangle
 # (pixels x triangles) evaluated at once by the plain version
 _REFERENCE_BLOCK = 1 << 22
+
+
+class RastBins(NamedTuple):
+    """The tile lists of a batch of views: the triangles whose screen box
+    holds a pixel centre of the tile, for those on at most MAX_BIN_TILES
+    tiles; the others ("wide") in one list per view, which every tile of
+    the view walks."""
+    start: torch.Tensor       # (B * n_tiles + 1,) int32 list offsets
+    pairs: torch.Tensor       # (start[-1],) int32 triangle indices
+    wide_count: torch.Tensor  # (B,) int32
+    wide: torch.Tensor        # (B, T) int32, the first wide_count[b] used
 
 
 class RastOutput(NamedTuple):
@@ -119,6 +135,67 @@ def _chunk_boxes(box: torch.Tensor, chunk: int) -> torch.Tensor:
     box = box.reshape(b, -1, chunk, 4)
     return torch.stack([box[..., 0].amin(-1), box[..., 1].amax(-1),
                         box[..., 2].amin(-1), box[..., 3].amax(-1)], dim=-1)
+
+
+def pixel_ranges(box: torch.Tensor, height: int, width: int):
+    """(B, T, 4) screen boxes -> the first and last pixel column and row
+    (xl, xh, yl, yh), each (B, T) float64, whose centres (x + 0.5,
+    y + 0.5) the box holds, clamped to the image, and whether there is any
+    such pixel.  x + 0.5 >= xmin iff x >= ceil(xmin - 0.5), exact in
+    float64 for an f32 xmin."""
+    bd = box.double()
+    xl = torch.ceil(bd[..., 0] - 0.5).clamp(min=0)
+    xh = torch.floor(bd[..., 1] - 0.5).clamp(max=width - 1)
+    yl = torch.ceil(bd[..., 2] - 0.5).clamp(min=0)
+    yh = torch.floor(bd[..., 3] - 0.5).clamp(max=height - 1)
+    ok = ((box[..., 0] <= box[..., 1]) & (box[..., 2] <= box[..., 3])
+          & (xl <= xh) & (yl <= yh))
+    return xl, xh, yl, yh, ok
+
+
+def tile_ranges(box: torch.Tensor, height: int, width: int):
+    """(B, T, 4) screen boxes -> per triangle the first and last tile
+    column and row (tx0, tx1, ty0, ty1) whose pixel centres the box holds
+    (`pixel_ranges`), each (B, T) int64, and the number of such tiles (0
+    for an empty box)."""
+    *ranges, ok = pixel_ranges(box, height, width)
+    tx0, tx1, ty0, ty1 = (torch.where(ok, v, 0).long() // TILE
+                          for v in ranges)
+    n = torch.where(ok, (tx1 - tx0 + 1) * (ty1 - ty0 + 1), 0)
+    return tx0, tx1, ty0, ty1, n
+
+
+def rast_bins_reference(box: torch.Tensor, height: int,
+                        width: int) -> RastBins:
+    """Plain mirror of the kernels' count / scan / fill: the tile lists of
+    (B, T, 4) screen boxes, each list in increasing triangle index (the
+    kernels' order depends on their atomics), the wide lists likewise, -1
+    past each view's count."""
+    nb, t = box.shape[:2]
+    n_tx, n_ty = -(-width // TILE), -(-height // TILE)
+    tx0, tx1, ty0, ty1, n = tile_ranges(box, height, width)
+    binned = (n > 0) & (n <= MAX_BIN_TILES)
+    wide_mask = n > MAX_BIN_TILES
+    b_idx, t_idx = binned.nonzero(as_tuple=True)
+    reps = n[b_idx, t_idx]
+    b_rep = b_idx.repeat_interleave(reps)
+    t_rep = t_idx.repeat_interleave(reps)
+    # the k-th tile of a triangle's range, row by row
+    k = torch.arange(int(reps.sum()), device=box.device) - (
+        torch.cumsum(reps, 0) - reps).repeat_interleave(reps)
+    cols = (tx1 - tx0 + 1)[b_rep, t_rep]
+    tile = ((ty0[b_rep, t_rep] + k // cols) * n_tx
+            + tx0[b_rep, t_rep] + k % cols + b_rep * (n_tx * n_ty))
+    order = torch.argsort(tile * t + t_rep)
+    counts = torch.bincount(tile, minlength=nb * n_tx * n_ty)
+    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    wide = torch.full((nb, t), -1, dtype=torch.int32, device=box.device)
+    wide_count = wide_mask.sum(1).to(torch.int32)
+    for bi in range(nb):
+        idx = wide_mask[bi].nonzero()[:, 0]
+        wide[bi, :idx.numel()] = idx.to(torch.int32)
+    return RastBins(start.to(torch.int32), t_rep[order].to(torch.int32),
+                    wide_count, wide)
 
 
 def rasterize_reference(pos_clip: torch.Tensor, tri: torch.Tensor,
@@ -223,13 +300,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rasterize")
     if lib.rast_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rast_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+        lib.rast_forward.argtypes = [p, p, i, p, i, i, i, i, i, i] + [p] * 9
         lib.rast_forward.restype = ctypes.c_int
     return lib
 
 
 def _launch(pos_clip: torch.Tensor, tri: torch.Tensor, height: int,
-            width: int, prev_z: Optional[torch.Tensor]) -> RastOutput:
+            width: int, prev_z: Optional[torch.Tensor]):
+    """The kernels -> (RastOutput, the set-up's records (B, T, 16) and
+    boxes (B, T, 4), RastBins with `pairs` at its full size)."""
     dev = pos_clip.device
     if pos_clip.dtype != torch.float32:
         raise TypeError(f"rasterize kernel takes float32 clip positions, "
@@ -239,37 +318,66 @@ def _launch(pos_clip: torch.Tensor, tri: torch.Tensor, height: int,
                         f"{tri.dtype}")
     if tri.device != dev:
         raise ValueError("triangles must be on the clip positions' device")
-    nb, t = tri.shape[:2]
-    if height <= 0 or width <= 0 or nb == 0 or nb > 65535:
-        raise ValueError(f"rasterize kernel needs H, W > 0 and "
-                         f"0 < B <= 65535, got B={nb} H={height} W={width}")
-    if t >= 2 ** 31 // 16 or nb * height * width >= 2 ** 31:
+    nb, nv = pos_clip.shape[:2]
+    t = tri.shape[1]
+    n_tiles = -(-width // TILE) * -(-height // TILE)
+    if height <= 0 or width <= 0 or nb == 0 or nb > 65535 or nv == 0:
+        raise ValueError(f"rasterize kernel needs H, W, V > 0 and "
+                         f"0 < B <= 65535, got B={nb} V={nv} H={height} "
+                         f"W={width}")
+    if (nb * t * MAX_BIN_TILES >= 2 ** 31 or nb * height * width >= 2 ** 31
+            or nb * n_tiles + nb >= 2 ** 31):
         raise ValueError("rasterize kernel: too many triangles or pixels "
                          "for 32-bit indexing")
+    if pos_clip.data_ptr() % 16:
+        raise ValueError("rasterize kernel needs 16-byte aligned clip "
+                         "positions")
     if prev_z is not None:
         if (prev_z.shape != (nb, height, width)
                 or prev_z.dtype != torch.float32 or prev_z.device != dev
                 or not prev_z.is_contiguous()):
             raise ValueError(f"prev_z must be a contiguous float32 "
                              f"({nb}, {height}, {width}) tensor on {dev}")
-    rec, box = _setup(pos_clip, tri, height, width)
-    cbox = _chunk_boxes(box, KERNEL_CHUNK).contiguous()
-    uvz = torch.empty((3, nb, height, width), dtype=torch.float32,
-                      device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rec = torch.empty((nb, t, 16), **f32)
+    box = torch.empty((nb, t, 4), **f32)
+    ints = torch.empty(2 * nb * n_tiles + nb + 1 + nb * t * (MAX_BIN_TILES
+                                                             + 1),
+                       dtype=torch.int32, device=dev)
+    counts, start, pairs, wide = ints.split(
+        [nb * n_tiles + nb, nb * n_tiles + 1, nb * t * MAX_BIN_TILES,
+         nb * t])
+    uvz = torch.empty((3, nb, height, width), **f32)
     tri_id = torch.empty((nb, height, width), dtype=torch.int32, device=dev)
-    for x in (rec, box, cbox):
-        if x.data_ptr() % 16:
-            raise ValueError("rasterize kernel needs 16-byte aligned set-up "
-                             "buffers")
     rc = _lib().rast_forward(
-        rec.data_ptr(), box.data_ptr(), cbox.data_ptr(),
-        None if prev_z is None else prev_z.data_ptr(),
-        nb, t, cbox.shape[1], height, width, uvz.data_ptr(),
+        pos_clip.data_ptr(), tri.data_ptr(), int(tri.dtype == torch.int64),
+        None if prev_z is None else prev_z.data_ptr(), nb, nv, t, height,
+        width, MAX_BIN_TILES, rec.data_ptr(), box.data_ptr(), counts.data_ptr(),
+        start.data_ptr(), pairs.data_ptr(), wide.data_ptr(), uvz.data_ptr(),
         tri_id.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize kernel launch failed: CUDA error {rc}")
     rasterize.launches += 1
-    return RastOutput(uvz[0], uvz[1], uvz[2], tri_id)
+    return (RastOutput(uvz[0], uvz[1], uvz[2], tri_id), rec, box,
+            RastBins(start, pairs, counts[nb * n_tiles:], wide.view(nb, t)))
+
+
+def rasterize_with_bins(pos_clip: torch.Tensor, tri: torch.Tensor,
+                        height: int, width: int,
+                        prev_z: Optional[torch.Tensor] = None):
+    """The kernels on (B, V, 4) / (B, T, 3) CUDA tensors -> (RastOutput,
+    the set-up kernel's records (B, T, 16) and boxes (B, T, 4), RastBins
+    as the kernels left them: each tile's list in the order its atomics
+    gave, `pairs` cut to the total), for holding the set-up and the
+    binning against `_setup` and `rast_bins_reference`.  One launch of
+    the wrapper (`rasterize.launches`)."""
+    if pos_clip.device.type != "cuda":
+        raise ValueError("rasterize_with_bins runs the kernels: it needs "
+                         "CUDA tensors")
+    out, rec, box, bins = _launch(pos_clip.contiguous(), tri.contiguous(),
+                                  height, width, prev_z)
+    total = int(bins.start[-1].item())
+    return out, rec, box, bins._replace(pairs=bins.pairs[:total])
 
 
 def rasterize(pos_clip: torch.Tensor, tri: torch.Tensor, height: int,
@@ -300,7 +408,7 @@ def rasterize(pos_clip: torch.Tensor, tri: torch.Tensor, height: int,
         out = rasterize_reference(pos_clip, tri, height, width, chunk,
                                   prev_z)
     elif pos_clip.device.type == "cuda":
-        out = _launch(pos_clip, tri, height, width, prev_z)
+        out = _launch(pos_clip, tri, height, width, prev_z)[0]
     else:
         raise ValueError(f"no rasterize kernel for device {pos_clip.device}")
     if single:
