@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,10] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,11] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9, 10: phase 8 reuses phase 3's flagship weights, freed before
+8, 7, 9, 10, 11: phase 8 reuses phase 3's flagship weights, freed before
 phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
@@ -97,6 +97,22 @@ phase 7):
      parameters changed, the launches of K1, K2 and K2 bwd per step equal
      to the count from the config (`train_step_launches`, with remat's
      recompute), every call they got checked in phase 2
+ 11  the sampling modes: random bf16 flagship weights from the seed (phase
+     3's), every request's K1/K2 launches equal to the config's count
+     (`pipelines.KernelCalls`) and every call checked in phase 2 (its new
+     shapes run there after every earlier case): forward at batch 2 x 20
+     steps with encoder_reuse 1, 2, 3 on the same inputs and noise (1 the
+     bits of the default request; 2 and 3 finite, differing from it by a
+     mean |diff| under 1.0; warm wall, device busy time from the profiler,
+     peak memory); a guided forward `_sample` (scale 3, the model at batch
+     4) with and without a negative context; `joint_sample` at batch 2;
+     inverse at batch 2 x ensemble 1 with `hoist_invariant` on and off,
+     every map within 2^-7 * max|hoisted|; `relight` at batch 1 with a
+     seeded latlong prefiltered at 128 with 64 samples; `rendering` and
+     `inverse_rendering` at batch 1 on a legacy16() and a legacy12() model,
+     each built, run and freed in turn; the small() r05 held-out forward
+     PSNR at encoder_reuse=2 no more than 1 dB below the JAX package's
+     (artifacts/r05/encoder_reuse_small.json)
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -151,7 +167,17 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11"
+MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
+REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
+REUSE_ROUNDS = 3                 # warm requests of each, in turns
+REUSE_MEAN_ABS = 1.0             # reuse vs exact image, mean |diff| (JAX test)
+GUIDANCE = 3.0                   # phase 11's guidance scale
+LEGACY = ("legacy16", "legacy12")
+RELIGHT_ENV = dict(env_res=128, env_samples=64)
+# the JAX package's held-out forward PSNR by encoder_reuse (small() r05, 32
+# objects, 20 steps), written by tools/encoder_reuse_reference_r05.py
+REUSE_REFERENCE = "artifacts/r05/encoder_reuse_small.json"
 PAD_CYCLES = 1_000_000           # ~0.5 ms of spin before each timed launch
 GN_HEADLINE = ((2, 64, 64, 320), 32, 1e-5, True)   # K1's headline call
 
@@ -446,13 +472,16 @@ def case_ok(r) -> bool:
 
 
 def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
-                  bwd_cases, later_route_cases, later_gn_cases):
-    """`gn_cases`, `later_gn_cases`: (call signature, parameter type) of K1;
-    `route_cases`, `later_route_cases`: (kernel name, case, options) of the
-    two routes; `bwd_cases`: (q shape, k shape) of K2 bwd.  All draw their
-    inputs from one seeded generator in this order; the `later_` cases,
-    added after the others, run last, so that each earlier case keeps the
-    inputs it had before they were added."""
+                  bwd_cases, later_route_cases, later_gn_cases,
+                  modes_gn_cases=(), modes_attn_cases=()):
+    """`gn_cases`, `later_gn_cases`, `modes_gn_cases`: (call signature,
+    parameter type) of K1; `attn_cases`, `modes_attn_cases`: (q shape, k
+    shape) of K2; `route_cases`, `later_route_cases`: (kernel name, case,
+    options) of the two routes; `bwd_cases`: (q shape, k shape) of K2 bwd.
+    All draw their inputs from one seeded generator in this order; the
+    `later_` and then the `modes_` cases (phase 11's shapes), added after
+    the others, run last, so that each earlier case keeps the inputs it
+    had before they were added."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def gn_job(c, p):
@@ -470,7 +499,10 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
                 lambda c=c: attn_bwd_case(torch, F, timer, gen, c))
                for c in bwd_cases]
             + [route_job(n, c, o) for n, c, o in later_route_cases]
-            + [gn_job(c, p) for c, p in later_gn_cases])
+            + [gn_job(c, p) for c, p in later_gn_cases]
+            + [gn_job(c, p) for c, p in modes_gn_cases]
+            + [route_job("flash_attention", c, {})
+               for c in modes_attn_cases])
     # what the timer reads for the least device work: a one-element fill
     one = torch.empty(1, device="cuda")
     floor_ms = timer(lambda: one.fill_(1.0))
@@ -1521,6 +1553,281 @@ def phase_flagship_training(torch, cfg, checked, profile):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the sampling modes
+# ---------------------------------------------------------------------------
+
+
+def counted_run(torch, fn, want, checked, what):
+    """fn() with every kernel count set to 0 just before and read just
+    after -> (its result, wall s, peak bytes, K1/K2 launches).  The
+    launches must equal `want` (`KernelCalls.launches`) and every shape
+    must have been checked in phase 2."""
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, seen = read_counters()
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: launches {got}, the config's {want}")
+    for name in want:
+        missed = seen[name] - checked[name]
+        check(not missed, f"{what}: {name} got calls phase 2 did not check: "
+              f"{sorted(missed)[:3]}")
+    return out, wall, torch.cuda.max_memory_allocated(), got
+
+
+def device_busy_ms(torch, fn) -> float:
+    """Device time of the kernels of one fn() (torch.profiler)."""
+    events, _ = profiled(torch, fn)
+    return sum(e.self_device_time_total for e in events
+               if not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def guided_request(torch, pipe, req, gen, neg_ctx, scale=GUIDANCE):
+    """A forward request through `_sample` with classifier-free guidance:
+    the maps encoded as `mask2image_3mod_albedo` encodes them (raw material
+    latent) -> a function that denoises the image latent at `scale`
+    (uncond under `neg_ctx`, or the blank context)."""
+    from unirenderer_tpu_torch.pipelines import FORWARD_RENDER
+    names = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
+    lat = pipe._latent_shape(req["normal"])
+    enc = pipe._randn((len(names) * lat[0],) + lat[1:], gen)
+    maps = pipe._encode_maps({n: req[n] for n in names}, enc)
+    groups = torch.stack([pipe.material_latent(req["metallic"],
+                                               req["roughness"], lat)]
+                         + [maps[n] for n in names[:-1]])
+
+    def sample():
+        return pipe._sample(FORWARD_RENDER, pipe._randn(lat, gen), groups,
+                            maps["mask"], pipe.blank_context(lat[0]),
+                            pipe.cfg.sampler.num_steps, scale, neg_ctx)[0]
+    return sample
+
+
+def phase_sampling_modes(torch, F, cfg, checked):
+    import dataclasses
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.eval.quality import (
+        held_out_scores, small_trained_pipeline,
+    )
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    calls = {k: c.launches for k, c in modes_calls(cfg).items()}
+    b, res, steps = MODES_BATCH, cfg.vae.sample_size, cfg.sampler.num_steps
+    lat = res // cfg.vae.downscale
+    pipe, _ = flagship_pipeline(torch, cfg)
+    result = {}
+
+    def with_reuse(k):
+        return dataclasses.replace(cfg, sampler=dataclasses.replace(
+            cfg.sampler, encoder_reuse=k))
+
+    # ---- encoder reuse: the same inputs and noise at k = 1, 2, 3
+    req = synthetic_request(torch, F, torch.Generator(
+        device="cuda").manual_seed(SEED + 11), b, res)
+
+    def forward():
+        return pipe.mask2image_3mod_albedo(
+            **req, generator=torch.Generator(device="cuda").manual_seed(
+                SEED + 12))
+    default = forward()
+    images, walls = {}, {k: [] for k in REUSE}
+    for k in REUSE:
+        pipe.cfg = with_reuse(k)
+        images[k], cold, peak, got = counted_run(
+            torch, forward, calls[f"reuse_{k}"], checked,
+            f"encoder_reuse={k}")
+        result[f"reuse_{k}"] = dict(
+            cold_wall_s=cold, peak_bytes=peak, launches=got,
+            device_busy_ms=device_busy_ms(torch, forward))
+    # warm walls in turns (the host's clock moves between requests)
+    for _ in range(REUSE_ROUNDS):
+        for k in REUSE:
+            pipe.cfg = with_reuse(k)
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t)
+    for k in REUSE:
+        r = result[f"reuse_{k}"]
+        r.update(warm_walls_s=walls[k],
+                 warm_wall_s=sorted(walls[k])[len(walls[k]) // 2])
+        warm, cold, busy = r["warm_wall_s"], r["cold_wall_s"], r[
+            "device_busy_ms"]
+        peak, got = r["peak_bytes"], r["launches"]
+        check(bool(torch.isfinite(images[k]).all()),
+              f"encoder_reuse={k}: non-finite image")
+        if k == 1:
+            check(torch.equal(images[1], default),
+                  "encoder_reuse=1 differs from the default request")
+        else:
+            diff = (images[k] - images[1]).abs()
+            r.update(max_abs_diff=diff.max().item(),
+                     mean_abs_diff=diff.mean().item())
+            check(r["max_abs_diff"] > 0
+                  and r["mean_abs_diff"] < REUSE_MEAN_ABS,
+                  f"encoder_reuse={k}: mean |diff| {r['mean_abs_diff']:.4g} "
+                  f"against the exact image (must be in (0, "
+                  f"{REUSE_MEAN_ABS}))")
+        log(f"  forward {b} x {steps} steps, encoder_reuse={k}: warm "
+            f"{warm:.3f} s (median of "
+            f"{' '.join(f'{w:.3f}' for w in walls[k])}; cold {cold:.3f}), "
+            f"device busy {busy:.1f} ms, "
+            f"peak {peak / 2**30:.2f} GiB, launches {got}"
+            + (f", against k=1: max|diff| {r['max_abs_diff']:.4g}, mean "
+               f"{r['mean_abs_diff']:.4g}" if k > 1 else
+               ", bit-identical to the default request"))
+    pipe.cfg = cfg
+
+    # ---- guidance: model at batch 2B, with and without a negative
+    # context; the unguided `_sample` of the same inputs beside it
+    plain = guided_request(torch, pipe, req, torch.Generator(
+        device="cuda").manual_seed(SEED + 13), None, scale=0.0)
+    plain()
+    unguided = device_busy_ms(torch, plain)
+    for negative in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        neg = None
+        if negative:
+            ctx = pipe.blank_context(b)
+            neg = torch.randn(ctx.shape, generator=gen, device="cuda").to(
+                ctx.dtype)
+        sample = guided_request(torch, pipe, req, gen, neg)
+        img_lat, wall, peak, got = counted_run(
+            torch, sample, calls["guidance"], checked,
+            f"guidance (negative context {negative})")
+        image = pipe._vae_decode(img_lat)
+        check(bool(torch.isfinite(image).all()) and image.shape == (
+            b, res, res, 3), "guided forward: bad image")
+        t = time.perf_counter()
+        sample()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        busy = device_busy_ms(torch, sample)
+        log(f"  guided forward (scale {GUIDANCE}, negative context "
+            f"{negative}): _sample warm {warm:.3f} s (first call "
+            f"{wall:.3f}), device busy {busy:.1f} ms against "
+            f"{unguided:.1f} unguided ({busy / unguided:.2f}x), peak "
+            f"{peak / 2**30:.2f} GiB, launches {got} (model at batch "
+            f"{2 * b})")
+        result[f"guidance_negative_{negative}"] = dict(
+            wall_s=wall, warm_wall_s=warm, device_busy_ms=busy,
+            unguided_device_busy_ms=unguided, peak_bytes=peak, launches=got)
+
+    # ---- joint sampling (the generic branch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    (img_lat, groups), wall, peak, got = counted_run(
+        torch, lambda: pipe.joint_sample(batch=b, mask=req["mask"],
+                                         generator=gen),
+        calls["joint"], checked, "joint_sample")
+    check(tuple(img_lat.shape) == (b, lat, lat, 4)
+          and tuple(groups.shape) == (6, b, lat, lat, 4)
+          and bool(torch.isfinite(img_lat).all())
+          and bool(torch.isfinite(groups).all()), "joint_sample: bad latents")
+    log(f"  joint_sample {b} x {steps} steps: {wall:.3f} s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {got}")
+    result["joint"] = dict(wall_s=wall, peak_bytes=peak, launches=got)
+
+    # ---- the inverse branch hoisted and unhoisted, the same noise
+    photo = small_inverse_request(torch, F, torch.Generator(
+        device="cuda").manual_seed(SEED + 15), b, res)
+    outs = {}
+    for hoist in (True, False):
+        pipe.hoist_invariant = hoist
+        outs[hoist], wall, peak, got = counted_run(
+            torch, lambda: pipe.real_image2mask_3mod_albedo(
+                **photo, ensemble=1, generator=torch.Generator(
+                    device="cuda").manual_seed(SEED + 16)),
+            calls[f"inverse_hoist_{hoist}"], checked,
+            f"inverse, hoist_invariant={hoist}")
+        log(f"  inverse {b} x ensemble 1, hoist_invariant={hoist}: "
+            f"{wall:.3f} s, peak {peak / 2**30:.2f} GiB, launches {got}")
+        result[f"inverse_hoist_{hoist}"] = dict(wall_s=wall,
+                                                peak_bytes=peak,
+                                                launches=got)
+    del pipe.hoist_invariant                  # the class's True again
+    worst = 0.0
+    for key, ref in outs[True].items():
+        got_k = outs[False][key]
+        check(bool(torch.isfinite(got_k).all()), f"unhoisted {key} not finite")
+        err = (got_k.float() - ref.float()).abs().max().item()
+        ratio = err / max(CARD_REL * ref.float().abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"unhoisted inverse {key}: max|diff| {err:.4g} "
+              f"above 2^-7 * max|hoisted|")
+    log(f"  unhoisted against hoisted: largest max|diff| / (2^-7 max|ref|) "
+        f"over the maps {worst:.4g}")
+    result["unhoisted_vs_hoisted"] = worst
+
+    # ---- relight: inverse, the new environment's light maps, forward
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    latlong = torch.exp(torch.randn((64, 128, 3), generator=gen,
+                                    device="cuda"))
+    one = {k: v[:1] for k, v in photo.items()}
+    relit, wall, peak, got = counted_run(
+        torch, lambda: pipe.relight(**one, new_env=latlong, generator=gen,
+                                    ensemble=1, **RELIGHT_ENV),
+        calls["relight"], checked, "relight")
+    check(tuple(relit.shape) == (1, res, res, 3)
+          and bool(torch.isfinite(relit).all()), "relight: bad image")
+    log(f"  relight 1 x ensemble 1 (env {RELIGHT_ENV}): {wall:.3f} s, "
+        f"peak {peak / 2**30:.2f} GiB, launches {got}")
+    result["relight"] = dict(wall_s=wall, peak_bytes=peak, launches=got)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- the legacy layouts, one model at a time
+    for name in LEGACY:
+        lcfg = getattr(config, name)()
+        legacy = UniRendererPipeline.create(
+            lcfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda", dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        attr, wall_i, _, got_i = counted_run(
+            torch, lambda: legacy.inverse_rendering(image=photo["image"][:1],
+                                                    generator=gen),
+            calls[f"{name}_inverse"], checked, f"{name} inverse_rendering")
+        g = lcfg.unet.attr_channels // 4
+        check(tuple(attr.shape) == (g, 1, lat, lat, 4)
+              and bool(torch.isfinite(attr).all()),
+              f"{name} inverse_rendering: bad latents")
+        image, wall_r, peak, got_r = counted_run(
+            torch, lambda: legacy.rendering(attr_latents=attr, generator=gen),
+            calls[f"{name}_rendering"], checked, f"{name} rendering")
+        check(tuple(image.shape) == (1, res, res, 3)
+              and bool(torch.isfinite(image).all()),
+              f"{name} rendering: bad image")
+        log(f"  {name} ({g} groups): inverse_rendering {wall_i:.3f} s, "
+            f"launches {got_i}; rendering {wall_r:.3f} s, launches {got_r}")
+        result[name] = dict(inverse_wall_s=wall_i, rendering_wall_s=wall_r,
+                            inverse_launches=got_i, rendering_launches=got_r)
+        del legacy, attr, image
+        torch.cuda.empty_cache()
+
+    # ---- held-out forward PSNR at encoder_reuse=2 against JAX's
+    with open(REUSE_REFERENCE) as f:
+        ref = json.load(f)["psnr_forward_render"]
+    small = small_trained_pipeline("cuda", torch.bfloat16)
+    small.cfg = dataclasses.replace(small.cfg, sampler=dataclasses.replace(
+        small.cfg.sampler, encoder_reuse=2))
+    r = held_out_scores(small, n=32, num_steps=20, noise_seeds=(1000,))
+    value = r["psnr_forward_render"]
+    log(f"  held-out forward PSNR at encoder_reuse=2: {value:.3f} dB (bf16 "
+        f"on the card), the JAX package's {ref['2']:.3f} (exact sampler: "
+        f"{ref['1']:.3f}; {REUSE_REFERENCE})")
+    check(value >= ref["2"] - PSNR_MARGIN,
+          f"held-out forward PSNR at encoder_reuse=2 {value:.3f} dB is more "
+          f"than {PSNR_MARGIN} dB below the JAX package's {ref['2']:.3f}")
+    result["held_out_reuse_2"] = dict(psnr=value, jax=ref["2"],
+                                      jax_exact=ref["1"])
+    del small
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -1580,6 +1887,30 @@ def kernels_line(results, launches):
     return {"kernels": out}
 
 
+def modes_calls(cfg):
+    """name -> `pipelines.KernelCalls` of each of phase 11's flagship
+    requests: the K1/K2 signatures it gives and the launches the config
+    says it makes."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.pipelines import FORWARD_RENDER, KernelCalls
+    res, steps, b = cfg.vae.sample_size, cfg.sampler.num_steps, MODES_BATCH
+    out = {f"reuse_{k}": KernelCalls(cfg, res).mask2image_3mod_albedo(
+        b, steps, encoder_reuse=k) for k in REUSE}
+    out["guidance"] = KernelCalls(cfg, res).sample(FORWARD_RENDER, b, steps,
+                                                   guidance=True)
+    out["joint"] = KernelCalls(cfg, res).joint_sample(b, steps)
+    for hoist in (True, False):
+        out[f"inverse_hoist_{hoist}"] = KernelCalls(
+            cfg, res).real_image2mask_3mod_albedo(b, steps, hoist=hoist)
+    for name in LEGACY:
+        lcfg = getattr(config, name)()
+        out[f"{name}_rendering"] = KernelCalls(lcfg, res).rendering(1, steps)
+        out[f"{name}_inverse"] = KernelCalls(lcfg, res).inverse_rendering(
+            1, steps)
+    out["relight"] = KernelCalls(cfg, res).relight(1, steps)
+    return out
+
+
 def phase2_cases(cfg):
     """Phase 2's cases in the order it runs them, from the kernels' calls
     on the flagship paths: K1 and K2 at every call of phases 3, 6, 8 and
@@ -1623,6 +1954,14 @@ def phase2_cases(cfg):
                     + [("attn_kernel", ragged_k3, f) for f in (
                         {}, {"running_max": False}, {"pipelined": False},
                         {"pipelined": False, "running_max": False})])
+    # phase 11's shapes that no earlier phase gives (guidance's model at
+    # batch 4, the batch-1 legacy and relight requests, joint sampling's
+    # VAE encoder at batch 2), run after every earlier case
+    modes_gn, modes_attn = set(), set()
+    for calls in modes_calls(cfg).values():
+        gn, attn = calls.signatures
+        modes_gn |= gn - gn_cases
+        modes_attn |= attn - attn_cases
     ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                  ((1, 33, 31, 1920), 32, 1e-6, False)]
     ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -1637,8 +1976,10 @@ def phase2_cases(cfg):
         later_gn=[(c, "float32") for c in ragged_gn + [GN_HEADLINE]],
         attn_jobs=sorted(attn_cases) + ragged_attn,
         bwd_jobs=sorted(train_attn) + ragged_attn,
-        checked={"groupnorm_silu": set(gn_cases),
-                 "flash_attention": set(attn_cases),
+        modes_gn=[(c, "bfloat16") for c in sorted(modes_gn)],
+        modes_attn=sorted(modes_attn),
+        checked={"groupnorm_silu": gn_cases | modes_gn,
+                 "flash_attention": attn_cases | modes_attn,
                  "flash_attention_backward": set(train_attn),
                  "splash_attention": set(routed),
                  "attn_kernel": set(routed)})
@@ -1716,12 +2057,15 @@ def main(argv=None) -> int:
                 f"main-path cases + ragged, "
                 f"{len(cases['route_cases']) + len(cases['later_routes'])} "
                 f"route cases, {len(cases['train_attn'])} attention "
-                f"backward cases + ragged (tolerance 2^-6 * max|ref|)")
+                f"backward cases + ragged (tolerance 2^-6 * max|ref|), "
+                f"{len(cases['modes_gn'])} GroupNorm and "
+                f"{len(cases['modes_attn'])} attention cases of phase 11")
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, cases["gn_jobs"], cases["attn_jobs"],
                 cases["route_cases"], cases["bwd_jobs"],
-                cases["later_routes"], cases["later_gn"])
+                cases["later_routes"], cases["later_gn"], cases["modes_gn"],
+                cases["modes_attn"])
             del timer
             fresh = k2_fresh_draws(torch)
             log(f"  K2 err / tol at (2,4096,8,40) on {len(fresh)} fresh "
@@ -1812,6 +2156,15 @@ def main(argv=None) -> int:
                 "flash_attention_backward"]
             record["flagship_training"] = training
             log("phase 10 done")
+        # ---- 11: the sampling modes
+        if 11 in phases:
+            log("phase 11 sampling modes: flagship, encoder reuse, guidance, "
+                "joint sampling, the unhoisted inverse, relight, the legacy "
+                "layouts; small() held-out PSNR at encoder_reuse=2")
+            t = time.perf_counter()
+            record["sampling_modes"] = phase_sampling_modes(torch, F, cfg,
+                                                            checked)
+            log(f"phase 11 done in {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

@@ -25,8 +25,12 @@ only where both sides hit) and bit-equal to its plain version, its set-up
 bit-equal to `_setup` and its tile lists equal to `rast_bins_reference`;
 the collate on the card to 1e-3 against the same collate on the CPU on
 >= 99 % of values (clip positions from cuBLAS and from the CPU can differ
-by an ulp, which can move a silhouette subsample).
+by an ulp, which can move a silhouette subsample).  The sampling modes
+(encoder reuse, guidance, joint sampling) at small() with the trained
+weights, 3 steps, on the card within 0.05 * max|ref| of f32 on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -621,3 +625,70 @@ def test_every_dual_parameter_gets_a_gradient_on_card(card, tmp_path,
     assert torch.isfinite(metrics["loss"]) and tr.state.step == 1
     assert all(not torch.equal(a, p) for a, p in
                zip(before, tr.state.params.values()))
+
+
+# ---------------------------------------------------------------------------
+# The sampling modes: encoder reuse, guidance, joint sampling
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_pipes():
+    """The trained small() pipeline on the card (bf16) and on the CPU
+    (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from unirenderer_tpu_torch.eval.quality import small_trained_pipeline
+    return (small_trained_pipeline("cuda", torch.bfloat16),
+            small_trained_pipeline("cpu", torch.float32))
+
+
+@pytest.mark.parametrize("mode", ["encoder_reuse", "guidance", "joint"])
+def test_sampling_modes_on_card_match_cpu(small_pipes, monkeypatch, mode):
+    """`_sample` at small() on the same latents, 3 steps: forward with
+    encoder_reuse 2 (full, cached, full), forward under guidance 3 with a
+    negative context (the model at batch 4), joint sampling (the whole
+    model a step): every output within 0.05 * max|ref| of f32 on the CPU
+    (the bf16 model rule of chip_smoke.py phase 4); K1/K2 launches as the
+    config counts them."""
+    from unirenderer_tpu_torch.pipelines import (
+        FORWARD_RENDER, JOINT_SAMPLE, KernelCalls,
+    )
+    on_card, on_cpu = small_pipes
+    cfg = on_card.cfg
+    if mode == "encoder_reuse":
+        cfg = dataclasses.replace(cfg, sampler=dataclasses.replace(
+            cfg.sampler, encoder_reuse=2))
+        for p in small_pipes:
+            monkeypatch.setattr(p, "cfg", cfg)
+    rng = np.random.default_rng(7)
+    lat = cfg.unet.sample_size
+    img, mask = (rng.standard_normal((2, lat, lat, 4)).astype(np.float32)
+                 for _ in range(2))
+    attr = rng.standard_normal((6, 2, lat, lat, 4)).astype(np.float32)
+    guidance, neg = (3.0, rng.standard_normal(
+        (2, cfg.text.max_length, cfg.unet.cross_attention_dim)).astype(
+            np.float32)) if mode == "guidance" else (0.0, None)
+    sample_mode = JOINT_SAMPLE if mode == "joint" else FORWARD_RENDER
+
+    def run(pipe):
+        dev = pipe.device
+        t = [torch.from_numpy(x).to(dev) for x in (img, attr, mask)]
+        ctx = pipe.blank_context(2)
+        n = None if neg is None else torch.from_numpy(neg).to(dev, ctx.dtype)
+        return pipe._sample(sample_mode, *t, ctx, 3, guidance, n)
+
+    want = run(on_cpu)
+    before = (fused_groupnorm_silu.launches, flash_attention.launches)
+    got = run(on_card)
+    torch.cuda.synchronize()
+    calls = KernelCalls(cfg, cfg.vae.sample_size).sample(
+        sample_mode, 2, 3, guidance=guidance > 1,
+        encoder_reuse=cfg.sampler.encoder_reuse).launches
+    assert (fused_groupnorm_silu.launches - before[0],
+            flash_attention.launches - before[1]) == (
+        calls["groupnorm_silu"], calls["flash_attention"])
+    for what, g, w in zip(("image latent", "attribute groups"), got, want):
+        err = (g.cpu() - w).abs().max().item()
+        tol = 0.05 * w.abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol, (what, err, tol)

@@ -160,11 +160,58 @@ def test_kernel_cases_with_material_image_encode(pipes):
 
 def test_entry_points_default_to_the_card():
     """With no card, building the pipeline without device="cpu" raises;
-    nothing falls back to the CPU."""
+    nothing falls back to the CPU.  A pipeline whose device is the card
+    (the default) runs every public sampling method there: each raises
+    here at its first draw or its first tensor."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises((RuntimeError, AssertionError)):
         UniRendererPipeline.create(tcfg.tiny(), torch.Generator())
+    pipe = UniRendererPipeline.create(tcfg.tiny(4), torch.Generator(),
+                                      device="cpu", dtype=torch.float32)
+    pipe.device = torch.device("cuda")
+    req = _request(pipe.cfg, 1, seed=1)
+    lat = np.zeros((1, 4, 4, 4), np.float32)
+    photo = dict(image=req["albedo"], mask=req["mask"])
+    calls = {
+        "mask2image_3mod_albedo": req,
+        "mask2image_3mod_albedo_black": req,
+        "image2mask_3mod_albedo": photo,
+        "real_image2mask_3mod_albedo": photo,
+        "joint_sample": dict(batch=1, mask=req["mask"]),
+        "rendering": dict(attr_latents=np.zeros((6, 1, 4, 4, 4))),
+        "inverse_rendering": dict(image=req["albedo"]),
+        "mask2image": dict(attr_latents=np.zeros((6, 1, 4, 4, 4))),
+        "mask2image_3mod": dict(attr_latents=np.zeros((6, 1, 4, 4, 4))),
+        "image2mask": dict(image=req["albedo"]),
+        "image2mask_3mod": dict(image=req["albedo"]),
+        "relight": dict(photo, new_env=np.ones((8, 16, 3))),
+    }
+    raw = dict(req, **{k: lat for k in MAPS})
+    # the error of a tensor made or moved onto the absent card
+    no_card = dict(expected_exception=(RuntimeError, AssertionError),
+                   match="(?i)cuda|nvidia")
+    for name, kw in list(calls.items()) + [
+            ("mask2image_3mod_albedo", dict(raw, latents_are_raw=True))]:
+        with pytest.raises(**no_card):
+            getattr(pipe, name)(**kw, generator=torch.Generator(),
+                                num_steps=1)
+    noise = dict(enc_noise=lat, img_noise=lat)
+    with_noise = {
+        "mask2image_3mod_albedo_with_noise": dict(req, **noise),
+        "real_image2mask_3mod_albedo_with_noise": dict(
+            photo, enc_noise=lat, attr_noise=lat),
+        "joint_sample_with_noise": dict(mask=req["mask"], attr_noise=lat,
+                                        **noise),
+        "rendering_with_noise": dict(attr_latents=lat, img_noise=lat),
+        "inverse_rendering_with_noise": dict(image=req["albedo"],
+                                             enc_noise=lat, attr_noise=lat),
+        "relight_with_noise": dict(mask=req["mask"], new_env=lat,
+                                   decomposed={}, **noise),
+    }
+    for name, kw in with_noise.items():
+        with pytest.raises(**no_card):
+            getattr(pipe, name)(**kw, num_steps=1)
 
 
 # ---------------------------------------------------------------------------

@@ -72,10 +72,14 @@ def assert_rel_close(got, want, rel: float, what: str = "") -> float:
     return err
 
 
-def tiny_pipelines(latent_size: int = 8):
+def tiny_pipelines(latent_size: int = 8, attr_channels: int = 0):
     """A JAX tiny() pipeline with seeded random f32 weights (built from
     `jax.eval_shape` of the inits: no flax init runs) and the port on the
-    CPU in f32 loaded with the same weights -> (jax pipe, port pipe)."""
+    CPU in f32 loaded with the same weights -> (jax pipe, port pipe).
+    `attr_channels` (16 or 12: a legacy layout) replaces the 28 of
+    tiny()."""
+    import dataclasses
+
     import jax.numpy as jnp
 
     from unirenderer_tpu.core import config as jcfg
@@ -86,7 +90,13 @@ def tiny_pipelines(latent_size: int = 8):
     from unirenderer_tpu_torch.core import config as tcfg
     from unirenderer_tpu_torch.pipelines import UniRendererPipeline
 
-    cfg = jcfg.tiny(latent_size)
+    def layout(c):
+        if not attr_channels:
+            return c
+        return dataclasses.replace(c, unet=dataclasses.replace(
+            c.unet, attr_channels=attr_channels))
+
+    cfg = layout(jcfg.tiny(latent_size))
     u, s = cfg.unet, cfg.unet.sample_size
     dual = DualStreamModel(u, jnp.float32)
     dual_p = random_params(flax_shapes(
@@ -102,11 +112,10 @@ def tiny_pipelines(latent_size: int = 8):
     jpipe = JaxPipeline(cfg, dual, dual_p, vae, vae_p, text, text_p)
 
     tpipe = UniRendererPipeline.create(
-        tcfg.tiny(latent_size), torch.Generator().manual_seed(0),
+        layout(tcfg.tiny(latent_size)), torch.Generator().manual_seed(0),
         device="cpu", dtype=torch.float32)
-    tpipe.load_flax(dual=flatten(dual_p["params"]),
-                    vae=flatten(vae_p["params"]),
-                    text=flatten(text_p["params"]))
+    flat = [flatten(p["params"]) for p in (dual_p, vae_p, text_p)]
+    assert tpipe.load_flax(*flat) == sum(map(len, flat))
     return jpipe, tpipe
 
 
@@ -188,3 +197,89 @@ def jax_draws(key, cfg, b):
 def torch_tree(tree):
     """{key: array} -> {key: tensor}."""
     return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+
+
+def count_kernel_calls(monkeypatch):
+    """Count the calls of K1's and K2's CPU stand-ins (the plain versions
+    the wrappers run on a CPU tensor) from now on, and clear the shapes
+    the wrappers have seen -> the Counter, keyed as
+    `KernelCalls.launches`."""
+    from collections import Counter
+
+    from unirenderer_tpu_torch.ops import flash_attention as fa
+    from unirenderer_tpu_torch.ops import groupnorm as gn
+    counts = Counter()
+
+    def counted(module, name, kernel):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            counts[kernel] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapper)
+
+    counted(gn, "_forward", "groupnorm_silu")
+    counted(fa, "attention_reference", "flash_attention")
+    gn.fused_groupnorm_silu.seen.clear()
+    fa.flash_attention.seen.clear()
+    return counts
+
+
+def seen_kernel_calls():
+    """(K1 signatures, K2 signatures) the wrappers have seen, as
+    `KernelCalls.signatures` gives them."""
+    from unirenderer_tpu_torch.ops.flash_attention import flash_attention
+    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    return set(fused_groupnorm_silu.seen), set(flash_attention.seen)
+
+
+def sampler_inputs(cfg, b, seed, groups=6):
+    """Seeded (image latent, attribute groups, mask latent) for `_sample`."""
+    rng = np.random.default_rng(seed)
+    s = cfg.unet.sample_size
+    img = rng.standard_normal((b, s, s, 4)).astype(np.float32)
+    attr = rng.standard_normal((groups, b, s, s, 4)).astype(np.float32)
+    mask = rng.standard_normal((b, s, s, 4)).astype(np.float32)
+    return img, attr, mask
+
+
+def blank_or_random_ctx(jpipe, b, negative_seed=None):
+    """The blank context the JAX pipeline computes, or a seeded random one
+    of its shape (a negative prompt's)."""
+    ctx = np.array(jpipe.blank_context(b))
+    if negative_seed is None:
+        return ctx
+    rng = np.random.default_rng(negative_seed)
+    return rng.standard_normal(ctx.shape).astype(np.float32)
+
+
+def sample_both(pipes, mode, inputs, ctx, steps, guidance=0.0,
+                neg_ctx=None):
+    """The JAX and the port `_sample` of the mode named `mode` on the same
+    numpy inputs -> ((jax img, jax groups), (port img, port groups)), as
+    numpy."""
+    import jax.numpy as jnp
+
+    from unirenderer_tpu import pipelines as jpl
+    from unirenderer_tpu_torch import pipelines as tpl
+    jpipe, tpipe = pipes
+    img, attr, mask = inputs
+    want = jpipe._sample(getattr(jpl, mode), *map(jnp.asarray, inputs),
+                         jnp.asarray(ctx), steps, guidance,
+                         None if neg_ctx is None else jnp.asarray(neg_ctx))
+    t = [torch.from_numpy(x) for x in (img, attr, mask, ctx)]
+    neg = None if neg_ctx is None else torch.from_numpy(neg_ctx)
+    got = tpipe._sample(getattr(tpl, mode), *t, steps, guidance, neg)
+    return ([np.asarray(w) for w in want], [g.numpy() for g in got])
+
+
+def assert_abs_close(got, want, tol: float, what: str = "") -> float:
+    """max|got - want| <= tol on a non-trivial `want` (max|want| > 0.05)
+    of the same shape; returns the error."""
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.abs(want).max() > 0.05, what
+    err = float(np.abs(got - want).max())
+    assert err <= tol, f"{what}: max|diff| {err:.3g} > {tol:.1e}"
+    return err

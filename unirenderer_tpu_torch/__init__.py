@@ -1,15 +1,14 @@
 """unirenderer_tpu_torch: the PyTorch/CUDA port of `unirenderer_tpu`.
 
 The JAX package stays the reference; this package re-implements its
-forward- and inverse-rendering paths
-(`UniRendererPipeline.mask2image_3mod_albedo`,
-`real_image2mask_3mod_albedo`), its split-sum renderer and render
-collate, in PyTorch for an NVIDIA H100, with the TPU kernels on those
-paths written by hand in CUDA (`csrc/`).
+sampling API (`UniRendererPipeline`: forward and inverse rendering,
+joint sampling, the legacy layouts, relighting), its split-sum renderer
+and render collate, and its trainer, in PyTorch for an NVIDIA H100, with
+the TPU kernels on those paths written by hand in CUDA (`csrc/`).
 Module names mirror the JAX package:
 
     core/       configs (own copy), npz reader, flax -> torch weight converter
-    diffusion/  DDPM x0 schedule and the UniPC sampler step
+    diffusion/  DDPM x0 schedule, the UniPC and DDIM sampler steps
     ops/        kernel wrappers (GroupNorm+SiLU, flash attention and the
                 splash / unet_flash attention routes, the tile
                 rasterizer), the nvcc build of `csrc/*.cu`, and the
@@ -18,7 +17,7 @@ Module names mirror the JAX package:
     render/     meshes, cameras, environment lights, `render_mesh`
     data/       datasets, the render collate, the synthetic data generator
     eval/       metrics and the held-out harness (forward and inverse legs)
-    pipelines   UniRendererPipeline (forward and inverse rendering)
+    pipelines   UniRendererPipeline (one sampling engine, every mode)
 
 Public functions keep the JAX package's NHWC / (B, S, H, D) layouts.
 Entry points run on the card (`device="cuda"`) unless the caller passes

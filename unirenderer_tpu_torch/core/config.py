@@ -3,8 +3,8 @@
 Only the parts the ported paths read are carried over: the model
 geometries (UNet, VAE, CLIP text), the diffusion schedule, the sampler
 recipe, the renderer and the data settings, with the same defaults and
-the same `flagship()`, `small()` and `tiny()` presets, and the training
-settings (`TrainConfig`).
+the same `flagship()`, `legacy16()`, `legacy12()`, `small()` and `tiny()`
+presets, and the training settings (`TrainConfig`).
 """
 
 from __future__ import annotations
@@ -86,9 +86,14 @@ class DiffusionConfig:
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     """Inference recipe: UniPC (order 2, bh2), no guidance; inverse
-    rendering averages an ensemble of 5 runs (1 at small() and tiny())."""
+    rendering averages an ensemble of 5 runs (1 at small() and tiny()).
+    `encoder_reuse` k > 1: forward rendering runs the UNet's encoder half
+    only every k-th step and the last, and the decoder half alone from
+    the cached raw taps in between (encoder propagation, Faster Diffusion,
+    arXiv 2312.09608); 1 runs every step in full."""
     num_steps: int = 20
     ensemble: int = 5
+    encoder_reuse: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +182,19 @@ class SystemConfig:
 def flagship() -> SystemConfig:
     """SD-v1.4 geometry: 512^2 images, 64^2 latents."""
     return SystemConfig()
+
+
+def legacy16() -> SystemConfig:
+    """The legacy 16-channel attribute layout (four 4-channel groups, no
+    mask head) of `rendering` / `inverse_rendering` / `mask2image` /
+    `image2mask`, at flagship geometry."""
+    return SystemConfig(unet=UNetConfig(attr_channels=16))
+
+
+def legacy12() -> SystemConfig:
+    """The legacy 12-channel layout (three groups) of the `*_3mod`
+    methods, at flagship geometry."""
+    return SystemConfig(unet=UNetConfig(attr_channels=12))
 
 
 def small() -> SystemConfig:

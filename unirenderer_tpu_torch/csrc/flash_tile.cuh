@@ -80,6 +80,15 @@ struct Strides {                  // element strides (batch, seq, head)
       o_ss, o_sh;
 };
 
+// elements a strided (batch, seq, head, d) view spans: its last element's
+// offset + 1 (the extent the index-checked build holds indices to)
+__device__ __forceinline__ long long view_extent(int batch, int seq,
+                                                 int heads, int d,
+                                                 long long sb, long long ss,
+                                                 long long sh) {
+  return (batch - 1) * sb + (seq - 1) * ss + (heads - 1) * sh + d;
+}
+
 template <int DP, bool kSplash, bool kLse = false>
 __device__ __forceinline__ void flash_tile(
     unsigned char* smem_raw, const bf16* __restrict__ q,
@@ -112,6 +121,20 @@ __device__ __forceinline__ void flash_tile(
   const bf16* kb = k + b * st.k_sb + h * st.k_sh;
   const bf16* vb = v + b * st.v_sb + h * st.v_sh;
   bf16* ob = o + b * st.o_sb + h * st.o_sh;
+#ifdef UNIRENDER_INDEX_CHECK
+  UR_CHECK_INDEX(b, batch, "attention batch");
+  UR_CHECK_INDEX(h, heads, "attention head");
+  const long long q_ext =
+      view_extent(batch, sq, heads, d, st.q_sb, st.q_ss, st.q_sh);
+  const long long k_ext =
+      view_extent(batch, sk, heads, d, st.k_sb, st.k_ss, st.k_sh);
+  const long long v_ext =
+      view_extent(batch, sk, heads, d, st.v_sb, st.v_ss, st.v_sh);
+  const long long o_ext =
+      view_extent(batch, sq, heads, d, st.o_sb, st.o_ss, st.o_sh);
+#else
+  const long long q_ext = 0;
+#endif
 
   const int n_tiles = (sk + kTileN - 1) / kTileN;
   // K/V tile j into slot j % NS: key r, 16-byte column block c at element
@@ -123,6 +146,15 @@ __device__ __forceinline__ void flash_tile(
       const int r = i / VPR, c = i % VPR, key = j * kTileN + r;
       const bool valid = key < sk && c * 8 < d;
       const int off = (r >> 3) * (DP * 8) + c * 64 + (r & 7) * 8;
+#ifdef UNIRENDER_INDEX_CHECK
+      if (valid) {
+        UR_CHECK_INDEX(kb + (long long)key * st.k_ss + c * 8 + 7 - k, k_ext,
+                       "attention K tile (copy)");
+        UR_CHECK_INDEX(vb + (long long)key * st.v_ss + c * 8 + 7 - v, v_ext,
+                       "attention V tile (copy)");
+      }
+      UR_CHECK_INDEX(off + 7, KV, "attention K/V tile (shared)");
+#endif
       cp_async16(tk + off, valid ? kb + (long long)key * st.k_ss + c * 8 : kb,
                  valid);
       cp_async16(tv + off, valid ? vb + (long long)key * st.v_ss + c * 8 : vb,
@@ -130,7 +162,7 @@ __device__ __forceinline__ void flash_tile(
     }
   };
   // ---- prologue: Q with tile 0 in group 0, tile 1 in group 1
-  cp_async_rows<DP, NT>(sQ, qb, st.q_ss, q0, kTileM, sq, d);
+  cp_async_rows<DP, NT>(sQ, qb, st.q_ss, q0, kTileM, sq, d, q, q_ext);
   load_tile(0);
   cp_async_commit();
   if (n_tiles > 1) load_tile(1);
@@ -300,6 +332,15 @@ __device__ __forceinline__ void flash_tile(
     // m_run and l0/l1 are in log2 units of the scaled logits
     constexpr float kLn2 = 0.6931471805599453f;
     float* lrow = lse + (long long)(b * heads + h) * sq;
+#ifdef UNIRENDER_INDEX_CHECK
+    const long long lse_ext = (long long)batch * heads * sq;
+    if (row0 < sq) {
+      UR_CHECK_INDEX(lrow + row0 - lse, lse_ext, "attention lse");
+    }
+    if (row1 < sq) {
+      UR_CHECK_INDEX(lrow + row1 - lse, lse_ext, "attention lse");
+    }
+#endif
     if (row0 < sq) lrow[row0] = (m_run[0] + log2f(l0)) * kLn2;
     if (row1 < sq) lrow[row1] = (m_run[1] + log2f(l1)) * kLn2;
   }
@@ -307,6 +348,16 @@ __device__ __forceinline__ void flash_tile(
   for (int n = 0; n < ND; ++n) {
     const int col = n * 8 + t4 * 2;
     if (col < d) {
+#ifdef UNIRENDER_INDEX_CHECK
+      if (row0 < sq) {
+        UR_CHECK_INDEX(ob + (long long)row0 * st.o_ss + col + 1 - o, o_ext,
+                       "attention O");
+      }
+      if (row1 < sq) {
+        UR_CHECK_INDEX(ob + (long long)row1 * st.o_ss + col + 1 - o, o_ext,
+                       "attention O");
+      }
+#endif
       if (row0 < sq) {
         *reinterpret_cast<uint32_t*>(ob + (long long)row0 * st.o_ss + col) =
             out[n][0];

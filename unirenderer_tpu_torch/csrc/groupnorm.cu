@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "index_check.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -129,6 +131,13 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
   const int cg_ = c / groups;
   const uint4* xb = reinterpret_cast<const uint4*>(x + (size_t)b * hw * c);
   const int pitch = c / kVec;          // uint4s a row
+  // extents of the checked build: x and y in uint4s, the partials, the
+  // x cache (uint4s)
+  const long long x_ext = (long long)(gridDim.x / n_chunks) * hw * pitch;
+  const long long x_off = (long long)b * hw * pitch;
+  const long long part_ext = (long long)gridDim.x * groups;
+  const long long cache_ext = (long long)rows_per_chunk * pitch;
+  (void)x_ext, (void)x_off, (void)part_ext, (void)cache_ext;
 
   // ---- 1. per-channel Welford over this thread's rows, four loads in
   // flight at a time
@@ -139,12 +148,20 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
     uint4 raw[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      if (r + u * rl < r1) raw[u] = xb[(size_t)(r + u * rl) * pitch + vc];
+      if (r + u * rl < r1) {
+        UR_CHECK_INDEX(x_off + (long long)(r + u * rl) * pitch + vc, x_ext,
+                       "K1 x");
+        raw[u] = xb[(size_t)(r + u * rl) * pitch + vc];
+      }
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       if (r + u * rl < r1) {
-        if (cached) cache[(r + u * rl - r0) * pitch + vc] = raw[u];
+        if (cached) {
+          UR_CHECK_INDEX((r + u * rl - r0) * pitch + vc, cache_ext,
+                         "K1 x cache");
+          cache[(r + u * rl - r0) * pitch + vc] = raw[u];
+        }
         n += 1.f;
         welford8(__frcp_rn(n), raw[u], mean, m2);
       }
@@ -216,6 +233,8 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
       sq += __shfl_xor_sync(0xffffffffu, sq, off);
     }
     if (lane == 0) {
+      UR_CHECK_INDEX((long long)blockIdx.x * groups + gi, part_ext,
+                     "K1 partials (write)");
       part[(size_t)blockIdx.x * groups + gi] = make_float2(gmean, sq);
     }
   }
@@ -246,12 +265,16 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
         float2 p[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
+          UR_CHECK_INDEX((long long)(b * n_chunks + ch + u * span) * groups +
+                             gi, part_ext, "K1 partials (read)");
           p[u] = __ldcg(pb + (size_t)(ch + u * span) * groups + gi);
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) take(ch + u * span, p[u]);
       }
       for (; ch < n_chunks; ch += span) {
+        UR_CHECK_INDEX((long long)(b * n_chunks + ch) * groups + gi,
+                       part_ext, "K1 partials (read)");
         take(ch, __ldcg(pb + (size_t)ch * groups + gi));
       }
     }
@@ -262,6 +285,7 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
       if (sub < off) chan_merge(gn, gmean, gm2, nb, mb, qb);
     }
     if (gi < groups && sub == 0) {
+      UR_CHECK_INDEX(gi, groups, "K1 group statistics");
       const float var = fmaxf(gm2 / gn, 0.f);
       gstat[gi] = make_float2(gmean, rsqrtf(var + eps));
     }
@@ -273,6 +297,8 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const int ch = vc * kVec + i;
+    UR_CHECK_INDEX(ch, c, "K1 scale/bias");
+    UR_CHECK_INDEX(ch / cg_, groups, "K1 group statistics");
     const float2 st = gstat[ch / cg_];
     mu[i] = st.x;
     a[i] = st.y * to_float(scale[ch]);
@@ -280,6 +306,9 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
   }
   uint4* yb = reinterpret_cast<uint4*>(y + (size_t)b * hw * c);
   for (int r = ry < rl ? r0 + ry : r1; r < r1; r += rl) {
+    UR_CHECK_INDEX(cached ? (long long)(r - r0) * pitch + vc
+                          : x_off + (long long)r * pitch + vc,
+                   cached ? cache_ext : x_ext, "K1 x (apply)");
     uint4 raw = cached ? cache[(r - r0) * pitch + vc]
                        : xb[(size_t)r * pitch + vc];
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
@@ -294,6 +323,7 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
       }
       h2[i] = __floats2bfloat162_rn(v0, v1);
     }
+    UR_CHECK_INDEX(x_off + (long long)r * pitch + vc, x_ext, "K1 y");
     yb[(size_t)r * pitch + vc] = raw;
   }
 }
@@ -428,6 +458,12 @@ int gn_silu_forward(const void* x, const void* scale, const void* bias,
   int err = 0;
   const Plan* p = plan_for(batch, hw, c, groups, param_bf16 ? 1 : 0, &err);
   if (p == nullptr) return err;
+#ifdef UNIRENDER_INDEX_CHECK
+  // the grid's partials must fit the workspace the caller sized
+  if (batch * p->n_chunks > gn_max_blocks()) {
+    return (int)cudaErrorInvalidValue;
+  }
+#endif
   const bf16* xp = reinterpret_cast<const bf16*>(x);
   bf16* yp = reinterpret_cast<bf16*>(y);
   float2* part = reinterpret_cast<float2*>(ws);

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "index_check.cuh"
+
 namespace attn {
 
 typedef __nv_bfloat16 bf16;
@@ -89,15 +91,26 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // rows [r0, r0 + rows) of a (seq, D) slice with row stride `stride` ->
 // shared [rows][DP + 8] by cp.async, THREADS threads; D zero-padded to DP,
-// rows at or past `limit` zero-filled.
+// rows at or past `limit` zero-filled.  In the index-checked build a
+// caller that passes `base` (the tensor's start) and `extent` (its
+// elements) has every 16-byte copy checked against them.
 template <int DP, int THREADS>
 __device__ __forceinline__ void cp_async_rows(bf16* dst, const bf16* src,
                                               long long stride, int r0,
-                                              int rows, int limit, int d) {
+                                              int rows, int limit, int d,
+                                              const bf16* base = nullptr,
+                                              long long extent = 0) {
   constexpr int LD = DP + 8, VPR = DP / 8;
+  (void)base, (void)extent;
   for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
     const int r = i / VPR, c = (i % VPR) * 8;
     const bool valid = r0 + r < limit && c < d;
+#ifdef UNIRENDER_INDEX_CHECK
+    if (base != nullptr && valid) {
+      UR_CHECK_INDEX(src + (long long)(r0 + r) * stride + c + 7 - base,
+                     extent, "attention rows (copy)");
+    }
+#endif
     cp_async16(dst + r * LD + c,
                valid ? src + (long long)(r0 + r) * stride + c : src, valid);
   }

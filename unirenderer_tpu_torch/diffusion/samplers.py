@@ -1,7 +1,9 @@
-"""UniPC (order <= 2, bh2, data prediction) as a pure step function.
+"""DDIM (eta = 0) and UniPC (order <= 2, bh2, data prediction) as pure
+step functions, and a loop that drives either over a timestep grid.
 
-Counterpart of `unirenderer_tpu/diffusion/samplers.py` (`UniPCState`,
-`_uni_bh2_update`, `unipc_step`), kept line for line, including the
+Counterpart of `unirenderer_tpu/diffusion/samplers.py` (`ddim_step`,
+`UniPCState`, `_uni_bh2_update`, `unipc_step`, `sample_loop`, its
+`lax.scan` a Python loop), kept line for line, including the
 step-0 history sanitisation: at step 0 the corrector sees (x, x0_pred, t),
 so h == 0 and its update is exactly the identity whichever branch of the
 `where` is taken, and at step <= 1 the second history point falls back to
@@ -12,11 +14,26 @@ synchronisation per step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from unirenderer_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+
+def ddim_step(schedule: DiffusionSchedule, x: torch.Tensor,
+              x0_pred: torch.Tensor, t: torch.Tensor,
+              t_next: torch.Tensor) -> torch.Tensor:
+    """Deterministic DDIM update from timestep t to t_next (x0
+    prediction): eps = (x - a_t x0) / s_t, x' = a_n x0 + s_n eps; a
+    negative t_next means the clean end (a_n = 1, s_n = 0)."""
+    a_t, s_t = schedule.alpha_sigma(t)
+    a_n, s_n = schedule.alpha_sigma(torch.clamp(t_next, min=0))
+    last = t_next < 0
+    a_n = torch.where(last, torch.ones_like(a_n), a_n)
+    s_n = torch.where(last, torch.zeros_like(s_n), s_n)
+    eps = (x - a_t * x0_pred) / s_t
+    return a_n * x0_pred + s_n * eps
 
 
 @dataclasses.dataclass
@@ -121,3 +138,27 @@ def unipc_step(schedule: DiffusionSchedule, state: UniPCState,
     new_state = UniPCState(m0=x0_pred, m1=m0, t0=t, t1=t0, last_sample=x,
                            step=step + 1)
     return new_state, x_next
+
+
+def sample_loop(schedule: DiffusionSchedule,
+                model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                x_init: torch.Tensor, timesteps: torch.Tensor,
+                method: str = "unipc") -> torch.Tensor:
+    """Denoise x_init over `timesteps` (descending, long) with
+    model_fn(x, t) -> x0, by "ddim" or "unipc"."""
+    if method not in ("ddim", "unipc"):
+        raise ValueError(f"method {method!r}: 'ddim' or 'unipc'")
+    n = timesteps.shape[0]
+    ts_next = torch.cat([timesteps[1:], timesteps.new_zeros(1)])
+    x = x_init
+    if method == "ddim":
+        for i in range(n):
+            x = ddim_step(schedule, x, model_fn(x, timesteps[i]),
+                          timesteps[i], ts_next[i])
+        return x
+    state = UniPCState.init(x.shape, device=x.device)
+    is_final = torch.arange(n, device=x.device) == n - 1
+    for i in range(n):
+        state, x = unipc_step(schedule, state, x, model_fn(x, timesteps[i]),
+                              timesteps[i], ts_next[i], is_final[i])
+    return x

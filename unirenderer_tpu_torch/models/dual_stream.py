@@ -6,7 +6,10 @@ Counterpart of `unirenderer_tpu/models/dual_stream.py`: `ImageUNet`,
 points the sampler uses.  Forward rendering: `encode_attr` (run once per
 request: the attribute stream is clean at t_attr = 0, so the encoder's
 residuals do not change across denoise steps) and
-`image_stream_with_residuals` (one UNet pass per step).  Inverse
+`image_stream_with_residuals` (one UNet pass per step), or with encoder
+reuse `image_stream_full_taps` (a full pass that also returns the UNet's
+raw taps) and `image_stream_cached` (the decoder half alone from cached
+raw taps) in between.  Inverse
 rendering: `unet_raw_taps` (the UNet's encoder half, once per request: the
 image latent is clean at t_img = 0 and the decoder reads the taps before
 any residual is added) and `attr_streams_with_unet_taps` (encoder and
@@ -152,15 +155,22 @@ class ImageUNet(_EncoderHalf, _DecoderHalf):
         return self.forward_with_taps(sample, t_img, ctx, down_residuals,
                                       mid_residual)[0]
 
-    def forward_with_taps(self, sample: torch.Tensor, t_img: torch.Tensor,
-                          ctx: torch.Tensor,
+    def forward_with_taps(self, sample: Optional[torch.Tensor],
+                          t_img: torch.Tensor, ctx: torch.Tensor,
                           down_residuals: Optional[Taps] = None,
-                          mid_residual: Optional[torch.Tensor] = None
-                          ) -> Tuple[torch.Tensor, Taps, torch.Tensor]:
+                          mid_residual: Optional[torch.Tensor] = None,
+                          cached_raw: Optional[Tuple[Taps, torch.Tensor]]
+                          = None) -> Tuple[torch.Tensor, Taps, torch.Tensor]:
         """-> (img_pred, raw down taps, raw mid output): the taps before
-        any residual is added, which the attribute decoder reads."""
+        any residual is added, which the attribute decoder reads.
+        `cached_raw` = (raw down taps, raw mid) skips conv_in and the down
+        and mid blocks (`sample` is then unused): the residuals go onto
+        the given taps and the decoder half runs at `t_img`."""
         temb = self.time_embed(t_img)
-        raw_down, raw_mid = self.encode(sample, temb, ctx)
+        if cached_raw is None:
+            raw_down, raw_mid = self.encode(sample, temb, ctx)
+        else:
+            raw_down, raw_mid = cached_raw
         down_taps, x = raw_down, raw_mid
         if down_residuals is not None:
             down_taps = tuple(d + r.to(d.dtype)
@@ -263,6 +273,27 @@ class DualStreamModel(nn.Module):
         dtype = self.unet.conv_in.weight.dtype
         return self.unet(img_latent, t_img, ctx.to(dtype), ctrl_down,
                          ctrl_mid)
+
+    def image_stream_full_taps(self, img_latent: torch.Tensor,
+                               t_img: torch.Tensor, ctx: torch.Tensor,
+                               ctrl_down: Taps, ctrl_mid: torch.Tensor
+                               ) -> Tuple[torch.Tensor, Taps, torch.Tensor]:
+        """`image_stream_with_residuals` that also returns the UNet's raw
+        down taps and mid output, the cache of encoder reuse."""
+        dtype = self.unet.conv_in.weight.dtype
+        return self.unet.forward_with_taps(img_latent, t_img, ctx.to(dtype),
+                                           ctrl_down, ctrl_mid)
+
+    def image_stream_cached(self, t_img: torch.Tensor, ctx: torch.Tensor,
+                            ctrl_down: Taps, ctrl_mid: torch.Tensor,
+                            cached_raw: Tuple[Taps, torch.Tensor]
+                            ) -> torch.Tensor:
+        """A decoder-only step from the raw taps `image_stream_full_taps`
+        returned at an earlier step (encoder reuse) -> img_pred (f32)."""
+        dtype = self.unet.conv_in.weight.dtype
+        return self.unet.forward_with_taps(None, t_img, ctx.to(dtype),
+                                           ctrl_down, ctrl_mid,
+                                           cached_raw=cached_raw)[0]
 
     def unet_raw_taps(self, img_latent: torch.Tensor, t_img: torch.Tensor,
                       ctx: torch.Tensor) -> Tuple[Taps, torch.Tensor]:

@@ -8,6 +8,12 @@ hash of the source, the headers and the flags, so a second process on the
 same machine reuses it.  It is loaded with `ctypes`.
 
 A missing `nvcc` or a failed build raises: nothing falls back.
+
+`extra_flags` (`INDEX_CHECK`: every computed global index of K1 and K2
+checked against its tensor's extent, `csrc/index_check.cuh`) builds a
+separate library; the first `load` of a name in a process fixes its
+flags, and the wrappers take whatever is loaded.  The package itself
+never passes flags.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -32,7 +38,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+# the checked build of chip_sanitize.py
+INDEX_CHECK = ("-DUNIRENDER_INDEX_CHECK",)
+
+_loaded: Dict[str, Tuple[ctypes.CDLL, Tuple[str, ...]]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,28 +63,31 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + tuple(extra_flags))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildResult]:
-    """Build every named source not yet built, one nvcc per source, all
-    started together.  Returns each library's path, build time and log."""
+def build(names: Iterable[str] = SOURCES,
+          extra_flags: Tuple[str, ...] = ()) -> Dict[str, BuildResult]:
+    """Build every named source not yet built (with `extra_flags` after
+    the default ones), one nvcc per source, all started together.
+    Returns each library's path, build time and log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     running = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra_flags)
         log_path = out.with_suffix(".log")
         if out.exists():
             log = log_path.read_text() if log_path.exists() else ""
             results[name] = BuildResult(name, out, 0.0, log)
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -95,11 +107,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildResult]:
     return results
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built at first use."""
-    lib: Optional[ctypes.CDLL] = _loaded.get(name)
-    if lib is None:
-        path = build([name])[name].path
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+def load(name: str,
+         extra_flags: Optional[Tuple[str, ...]] = None) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built at first use with
+    `extra_flags` (none by default).  Without `extra_flags` a later call
+    takes the library already loaded; with them, one loaded with other
+    flags raises."""
+    if name not in _loaded:
+        flags = tuple(extra_flags or ())
+        path = build([name], flags)[name].path
+        _loaded[name] = (ctypes.CDLL(str(path)), flags)
+    lib, flags = _loaded[name]
+    if extra_flags is not None and tuple(extra_flags) != flags:
+        raise RuntimeError(f"{name} is loaded with flags {flags}, not "
+                           f"{tuple(extra_flags)}")
     return lib

@@ -40,7 +40,7 @@ from unirenderer_tpu_torch.diffusion.schedule import (
 )
 from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
 from unirenderer_tpu_torch.models.vae import AutoencoderKL
-from unirenderer_tpu_torch.pipelines import UniRendererPipeline, _KernelCalls
+from unirenderer_tpu_torch.pipelines import KernelCalls, UniRendererPipeline
 from unirenderer_tpu_torch.train.losses import dual_stream_loss
 
 # (B, H, W, 3) maps in [-1, 1]: the 8 modalities the step VAE-encodes
@@ -324,7 +324,7 @@ def make_train_step(cfg: SystemConfig, dual: DualStreamModel,
 def train_step_launches(cfg: SystemConfig, batch: int,
                         is_inverse: bool) -> Dict[str, int]:
     """Kernel launches of one train step, worked out from the config
-    (`pipelines._KernelCalls`): K1 (the VAE encoder's norms and the
+    (`pipelines.KernelCalls`): K1 (the VAE encoder's norms and the
     dual-stream norms), K2 forward (every dual-stream attention call), K2
     backward (one per attention call); under remat the down and up blocks'
     K1 and K2 forward calls run again in the backward.  The main pass runs
@@ -332,7 +332,7 @@ def train_step_launches(cfg: SystemConfig, batch: int,
     step's cycle pass the encoder and the UNet again."""
     size = cfg.vae.sample_size
     encoders, decoders = (4, 3) if is_inverse else (2, 2)
-    fwd, bwd = _KernelCalls(cfg, size), _KernelCalls(cfg, size)
+    fwd, bwd = KernelCalls(cfg, size), KernelCalls(cfg, size)
     runs = 2 if cfg.unet.remat else 1
     for calls, block_runs in ((fwd, runs), (bwd, 1)):
         for _ in range(encoders):
@@ -351,7 +351,7 @@ def train_kernel_cases(cfg: SystemConfig, batch: int, image_size: int):
     config, in the form the wrappers record in `.seen`: the VAE encoder
     over the 8 maps, the dual-stream encoder and decoder halves (the cycle
     pass repeats the same shapes)."""
-    calls = _KernelCalls(cfg, image_size)
+    calls = KernelCalls(cfg, image_size)
     calls.encoder_half(batch)
     calls.decoder_half(batch)
     calls.vae_encoder(len(BATCH_KEYS) * batch)
