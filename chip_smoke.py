@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out DIR] [--phases 0,1,...,11] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9, 10, 11: phase 8 reuses phase 3's flagship weights, freed before
-phase 7):
+8, 7, 9, 10, 11, 12: phase 8 reuses phase 3's flagship weights, freed
+before phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
      and the -Xptxas -v report (registers, shared memory, spills, and any
@@ -113,6 +113,25 @@ phase 7):
      each built, run and freed in turn; the small() r05 held-out forward
      PSNR at encoder_reuse=2 no more than 1 dB below the JAX package's
      (artifacts/r05/encoder_reuse_small.json)
+ 12  the rest of training: a scene bank on the card from phase 6's two
+     flagship scenes (meshes padded to the set's max (V, T) rounded up to
+     128), K4 against its plain version at the bank steps' raster shapes;
+     4 flagship bank steps of `Trainer(scene_bank=...)` (AdamW), forward /
+     inverse / forward / inverse, each step's K1, K2, K2 bwd and K4
+     launches equal to `train_step_launches(render=True)` and every call
+     checked earlier, warm wall, peak memory, the bank's bytes, a profile
+     of one warm step (device busy, idle share, K4's share); the time of
+     an `AsyncSaver` snapshot (the clone alone); at the same draws the
+     render-in-step and two-phase steps' loss within 1e-3 relative of the
+     plain step's; 2 Adafactor bank steps (peak memory against AdamW's); 4
+     calls with gradient accumulation k = 2 (parameters move on calls 2
+     and 4 only); 3 VAE training steps at flagship width from the bank (1
+     scene x 8 maps, bf16; K1 launches from the config, K2 none); at
+     small() with the r05 weights, validation on 4 held-out objects (seed
+     99) equal to the harness's inverse PSNRs at the same params and
+     noise, 2 bank steps over the held-out set with a checkpoint, a fresh
+     Trainer resuming bit-equal (params, optimizer state, step, generator)
+     and one more step from each within 1e-3 relative
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -167,7 +186,7 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12"
 MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
 REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
 REUSE_ROUNDS = 3                 # warm requests of each, in turns
@@ -180,6 +199,9 @@ RELIGHT_ENV = dict(env_res=128, env_samples=64)
 REUSE_REFERENCE = "artifacts/r05/encoder_reuse_small.json"
 PAD_CYCLES = 1_000_000           # ~0.5 ms of spin before each timed launch
 GN_HEADLINE = ((2, 64, 64, 320), 32, 1e-5, True)   # K1's headline call
+TRAIN_VARIANT_REL = 1e-3         # render-in-step, two-phase, resume: loss
+VALIDATION_PSNR_ABS = 1e-3       # validation vs the harness's maps, dB
+VAE_BATCH = 1                    # scenes (x 8 maps) per VAE step, phase 12
 
 
 def log(msg: str) -> None:
@@ -473,7 +495,7 @@ def case_ok(r) -> bool:
 
 def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
                   bwd_cases, later_route_cases, later_gn_cases,
-                  modes_gn_cases=(), modes_attn_cases=()):
+                  modes_gn_cases=(), modes_attn_cases=(), vae_gn_cases=()):
     """`gn_cases`, `later_gn_cases`, `modes_gn_cases`: (call signature,
     parameter type) of K1; `attn_cases`, `modes_attn_cases`: (q shape, k
     shape) of K2; `route_cases`, `later_route_cases`: (kernel name, case,
@@ -481,7 +503,8 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
     All draw their inputs from one seeded generator in this order; the
     `later_` and then the `modes_` cases (phase 11's shapes), added after
     the others, run last, so that each earlier case keeps the inputs it
-    had before they were added."""
+    had before they were added; the `vae_` cases (phase 12's VAE training
+    shapes) after those."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def gn_job(c, p):
@@ -502,7 +525,8 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
             + [gn_job(c, p) for c, p in later_gn_cases]
             + [gn_job(c, p) for c, p in modes_gn_cases]
             + [route_job("flash_attention", c, {})
-               for c in modes_attn_cases])
+               for c in modes_attn_cases]
+            + [gn_job(c, p) for c, p in vae_gn_cases])
     # what the timer reads for the least device work: a one-element fill
     one = torch.empty(1, device="cuda")
     floor_ms = timer(lambda: one.fill_(1.0))
@@ -673,6 +697,8 @@ KERNEL_CLASSES = (          # (class, substrings of a device kernel's name)
     ("convolution", ("fprop", "convolve", "implicit_gemm", "winograd")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
     ("normalisation (LayerNorm)", ("layer_norm",)),
+    ("K4 rasterize", ("rast_setup_count_kernel", "rast_scan_kernel",
+                      "rast_fill_kernel", "rast_raster_kernel")),
     ("softmax", ("softmax",)),
 )
 
@@ -1455,7 +1481,7 @@ def phase_small_training(torch):
                      "flash_attention_backward"):
             check(launches[name] > 0, f"{name} never launched in training")
         flat, step = load_params_npz(
-            os.path.join(tr.ckpt_dir, "params_00000002.npz"))
+            os.path.join(tr.ckpt.step_dir(2), "params.npz"))
         n = load_flax(DualStreamModel(cfg.unet), flat)
         with open(tr.metrics_path) as f:
             logged = [json.loads(line)["step"] for line in f]
@@ -1472,6 +1498,68 @@ def phase_small_training(torch):
 # ---------------------------------------------------------------------------
 # Phase 10: flagship training
 # ---------------------------------------------------------------------------
+
+
+PREFETCH_STEPS = 4
+
+
+def prefetch_overlap(torch, cfg, trainer, items):
+    """The training CLI's input against the collate in the loop: blocks
+    of PREFETCH_STEPS flagship steps (forward and inverse in turn) over
+    `rendered_batches(prefetch=0)` (the collate in the loop) and
+    `prefetch=2` (in a thread on a side stream), in the order in-loop,
+    prefetch, prefetch, in-loop; each block after one untimed warm step
+    on a fresh iterator, its wall from the first fetch to the last
+    step's end.  K1/K2/K2 bwd launches (the step's thread only) must
+    equal the config's; K4's count also takes in the batches the thread
+    collated ahead."""
+    from unirenderer_tpu_torch.train.train_step import train_step_launches
+    from unirenderer_tpu_torch.train.trainer import rendered_batches
+    d = cfg.data
+    counted = ("groupnorm_silu", "flash_attention",
+               "flash_attention_backward")
+    want = {k: sum(train_step_launches(cfg, 2, bool(i % 2))[k]
+                   for i in range(PREFETCH_STEPS)) for k in counted}
+    out = {0: [], 2: []}
+    for depth in (0, 2, 2, 0):
+        batches = rendered_batches(items, 2, d.resolution, d.ssaa,
+                                   device="cuda", seed=SEED,
+                                   prefetch=depth)
+        try:
+            trainer.step(next(batches), is_inverse=True)
+            torch.cuda.synchronize()
+            reset_counters()
+            t = time.perf_counter()
+            losses = [trainer.step(next(batches),
+                                   is_inverse=bool(i % 2))["loss"]
+                      for i in range(PREFETCH_STEPS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, _ = read_counters()
+        finally:
+            batches.close()
+        losses = [float(x) for x in losses]
+        check(all(map(math.isfinite, losses)),
+              f"non-finite loss over prefetch={depth} batches: {losses}")
+        for k in counted:
+            check(launches[k] == want[k],
+                  f"{k}: {launches[k]} launches in {PREFETCH_STEPS} steps "
+                  f"over prefetch={depth} batches, {want[k]} from the "
+                  f"config")
+        check(launches["rasterize"] >= PREFETCH_STEPS,
+              f"K4 launched {launches['rasterize']} times for "
+              f"{PREFETCH_STEPS} batches (prefetch={depth})")
+        out[depth].append(dict(wall_s=wall, k4=launches["rasterize"],
+                               losses=losses))
+        log(f"  prefetch={depth}: {PREFETCH_STEPS} steps in {wall:.3f} s "
+            f"({wall / PREFETCH_STEPS:.3f} s a step, the fetch included), "
+            f"K4 {launches['rasterize']} launches, losses "
+            + ", ".join(f"{x:.5g}" for x in losses))
+    per_step = {name: [r["wall_s"] / PREFETCH_STEPS for r in out[depth]]
+                for name, depth in (("in_loop", 0), ("prefetched", 2))}
+    log(f"  s a step over the collate in the loop {per_step['in_loop']}, "
+        f"prefetched {per_step['prefetched']}")
+    return dict(in_loop=out[0], prefetched=out[2], s_per_step=per_step)
 
 
 def phase_flagship_training(torch, cfg, checked, profile):
@@ -1543,6 +1631,7 @@ def phase_flagship_training(torch, cfg, checked, profile):
         result = dict(params=n_params, steps=steps, peak_bytes=peak,
                       launches=totals, forward_wall_s=walls["forward"],
                       inverse_wall_s=walls["inverse"])
+        result["prefetch"] = prefetch_overlap(torch, cfg, trainer, items)
         if profile:
             batch = next(batches)
             result["profile"] = profile_request(
@@ -1827,6 +1916,464 @@ def phase_sampling_modes(torch, F, cfg, checked):
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of training
+# ---------------------------------------------------------------------------
+
+
+def vae_train_calls(cfg):
+    """`pipelines.KernelCalls` of one VAE training step at flagship width:
+    the encoder and the decoder over VAE_BATCH scenes x 8 maps."""
+    from unirenderer_tpu_torch.pipelines import KernelCalls
+    n = 8 * VAE_BATCH
+    calls = KernelCalls(cfg, cfg.data.resolution)
+    calls.vae_encoder(n)
+    calls.vae_decoder(n)
+    return calls
+
+
+def unpadded(mesh):
+    """A dataset mesh padded to DataConfig's (V, T), back to its own."""
+    import numpy as np
+    t = mesh["t_idx"]
+    n_t = int(np.nonzero(t.any(axis=1))[0].max()) + 1
+    n_v = int(t[:n_t].max()) + 1
+    out = {k: mesh[k][:n_v] for k in ("v_pos", "v_nrm", "v_tng", "v_tex")}
+    out["t_idx"] = t[:n_t]
+    return out
+
+
+def bank_rast_cases(torch, bank, cfg):
+    """K4 against its plain version at the raster shapes of the bank steps
+    (2 views: the train step; VAE_BATCH: the VAE step), on clip positions
+    of scenes drawn from the bank; kernel time from CUDA events over one
+    call after an L2 flush (the plain version runs once, for the check)."""
+    from unirenderer_tpu_torch.data.scene_bank import (
+        bank_sizes, draw_scenes, scenes_from_draws,
+    )
+    from unirenderer_tpu_torch.ops.rasterize import (
+        match_stats, rasterize, rasterize_reference, within_rule,
+    )
+    from unirenderer_tpu_torch.ops.transform import xfm_points
+    d = cfg.data
+    res = d.resolution * d.ssaa
+    gen = torch.Generator().manual_seed(SEED)
+    timer = Timer(torch)
+    out, signatures = [], set()
+    for views in sorted({2, VAE_BATCH}):
+        scene = scenes_from_draws(bank, draw_scenes(
+            gen, bank_sizes(bank), views, d), d)
+        pos = xfm_points(scene["v_pos"], scene["mvps"]).contiguous()
+        tri = scene["t_idx"].contiguous()
+        got = rasterize(pos, tri, res, res)
+        torch.cuda.synchronize()
+        want = rasterize_reference(pos, tri, res, res)
+        stats = match_stats(got, want)
+        ms = timer(lambda: rasterize(pos, tri, res, res))
+        bound_ms, bound_by, _ = rast_bound(torch, pos, tri, res, res, False)
+        r = dict(kernel="rasterize", case=f"bank {views} views",
+                 shape=[views, pos.shape[1], tri.shape[1], res, res],
+                 peel=False, ok=within_rule(stats) and stats["bit_equal"],
+                 **stats, max_abs_err=max(stats["z_err"], stats["uv_err"]),
+                 ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None)
+        log(f"  K4 at the bank's shape {r['shape']}: bit-equal "
+            f"{int(stats['bit_equal'])}, within the rule "
+            f"{int(within_rule(stats))}, {ms:.4f} ms (bound {bound_ms:.4f},"
+            f" {bound_by})")
+        check(r["ok"], f"K4 disagrees with its plain version at {r['shape']}")
+        out.append(r)
+        signatures.add(((views, pos.shape[1], 4), (views, tri.shape[1], 3),
+                        res, res, False))
+        del got, want
+    return out, signatures
+
+
+def train_launch_check(launches, seen, want, checked, what):
+    for k, n in want.items():
+        check(launches[k] == n, f"{what}: {k} {launches[k]} launches, "
+              f"{n} from the config")
+        missed = seen[k] - checked[k]
+        check(not missed, f"{what}: {k} got calls no earlier case checked: "
+              f"{sorted(missed)[:3]}")
+
+
+def phase_rest_of_training(torch, cfg, checked):
+    """The scene-bank trainer, the step variants, Adafactor, gradient
+    accumulation, the snapshot of a checkpoint and VAE training at
+    flagship width; resume and validation at small() with the r05
+    weights."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from unirenderer_tpu_torch.core.checkpoint import AsyncSaver
+    from unirenderer_tpu_torch.data.objaverse import collate_from_scene
+    from unirenderer_tpu_torch.data.scene_bank import (
+        bank_bytes, bank_sizes, draw_scenes, scenes_from_draws, stack_bank,
+    )
+    from unirenderer_tpu_torch.train.train_step import (
+        BATCH_KEYS, create_train_state, draw, make_bank_train_step,
+        make_grad_fn, make_render_train_step, make_two_phase_train_step,
+        train_step_launches,
+    )
+    from unirenderer_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    d = cfg.data
+    items, _ = flagship_items(torch, cfg, np.random.default_rng(SEED))
+    bank_np = stack_bank([unpadded(i["mesh"]) for i in items],
+                         [i["mesh"]["kd_tex"] for i in items],
+                         [items[0]["env"]])
+    del items
+    counted = ("groupnorm_silu", "flash_attention",
+               "flash_attention_backward", "rasterize")
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        trainer = Trainer(cfg, os.path.join(tmp, "flagship"), device="cuda",
+                          scene_bank=bank_np)
+        torch.cuda.synchronize()
+        bank = trainer.bank
+        n_mesh, n_env = bank_sizes(bank)
+        log(f"  flagship Trainer with a scene bank built in "
+            f"{time.perf_counter() - t:.1f} s; bank {n_mesh} meshes, {n_env} "
+            f"env, V {bank['v_pos'].shape[1]}, T {bank['t_idx'].shape[1]} "
+            f"(the set's max rounded up to 128), "
+            f"{bank_bytes(bank) / 2**20:.1f} MiB on the card")
+        rast_cases, rast_checked = bank_rast_cases(torch, bank, cfg)
+        checked = dict(checked, rasterize=rast_checked)
+        result.update(bank_bytes=bank_bytes(bank),
+                      bank_t=int(bank["t_idx"].shape[1]),
+                      rasterize_cases=rast_cases)
+
+        # 1. bank steps, the branch forced
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for inverse in (False, True, False, True):
+            torch.cuda.synchronize()
+            reset_counters()
+            t = time.perf_counter()
+            metrics = trainer.step(is_inverse=inverse)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, seen = read_counters()
+            want = train_step_launches(cfg, 2, inverse, render=True)
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            kind = "inverse" if inverse else "forward"
+            log(f"  bank {kind} step {trainer.state.step}: {wall:.3f} s, "
+                f"loss {loss:.5g}, grad norm {norm:.5g}, launches "
+                + ", ".join(f"{k} {launches[k]} (config {want[k]})"
+                            for k in counted))
+            check(math.isfinite(loss) and math.isfinite(norm),
+                  f"non-finite loss or grad norm at a bank {kind} step")
+            train_launch_check(launches, seen, want, checked,
+                               f"bank {kind} step")
+            steps.append(dict(inverse=inverse, wall_s=wall, loss=loss,
+                              grad_norm=norm,
+                              launches={k: launches[k] for k in counted}))
+        adamw_peak = torch.cuda.max_memory_allocated()
+        log(f"  bank steps warm: forward {steps[2]['wall_s']:.3f} s, "
+            f"inverse {steps[3]['wall_s']:.3f} s (cold {steps[0]['wall_s']:.3f}"
+            f" / {steps[1]['wall_s']:.3f}); peak memory "
+            f"{adamw_peak / 2**30:.2f} GiB (AdamW)")
+        prof = profile_request(torch, lambda: trainer.step(is_inverse=True))
+        k4_ms = prof["by_class"].get("K4 rasterize", 0.0)
+        busy = prof["device_busy_ms"]
+        idle = 1 - busy / (1e3 * steps[3]["wall_s"])
+        log(f"  warm inverse bank step profiled: device busy {busy:.1f} ms, "
+            f"{100 * idle:.1f}% idle against the unprofiled warm wall "
+            f"({1e3 * steps[3]['wall_s']:.1f} ms; "
+            f"{100 * (1 - busy / prof['wall_ms']):.1f}% of the profiled "
+            f"{prof['wall_ms']:.1f} ms); K4 {k4_ms:.3f} ms = "
+            f"{100 * k4_ms / busy:.2f}% of device time")
+        prof["idle_share_unprofiled"] = idle
+        result.update(bank_steps=steps, adamw_peak_bytes=adamw_peak,
+                      bank_profile=prof)
+
+        # 2. the snapshot of a checkpoint (AdamW state), write skipped
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap = AsyncSaver.snapshot(trainer.state.params,
+                                   trainer.resume_state())
+        torch.cuda.synchronize()
+        snap_s = time.perf_counter() - t
+        snap_bytes = sum(v.numel() * v.element_size()
+                         for v in snap[0].values())
+        del snap
+        torch.cuda.empty_cache()
+        log(f"  AsyncSaver snapshot (clone on the card of the params and "
+            f"the optimizer state, no write): {snap_s:.3f} s; params "
+            f"{snap_bytes / 2**30:.2f} GiB")
+        result["snapshot_s"] = snap_s
+
+        # 3. render-in-step and two-phase against the plain step's loss
+        args = (cfg, trainer.dual, trainer.vae, trainer.schedule,
+                trainer.compute_dtype)
+        gen = torch.Generator().manual_seed(SEED + 12)
+        sd = draw_scenes(gen, bank_sizes(bank), 2, d)
+        draws = draw(gen, 2, (d.resolution // cfg.vae.downscale,) * 2,
+                     cfg.diffusion.num_train_timesteps, True).to("cuda")
+        scene = scenes_from_draws(bank, sd, d)
+
+        def collate(sc):
+            return collate_from_scene(sc, d.resolution, ssaa=d.ssaa)
+
+        with torch.no_grad():
+            maps = collate(scene)
+        _, m_plain = make_grad_fn(*args)(
+            trainer.state.params, {k: maps[k] for k in BATCH_KEYS},
+            trainer.ctx, draws)
+        del maps
+        grad_step, _ = make_two_phase_train_step(*args,
+                                                 batch_transform=collate)
+        grads, m_two = grad_step(trainer.state.params, trainer.ctx, scene,
+                                 draws)
+        del grads
+        m_render = make_render_train_step(*args)(trainer.state, trainer.ctx,
+                                                 scene, draws)
+        losses = {k: float(m["loss"]) for k, m in (
+            ("plain", m_plain), ("two_phase", m_two), ("render", m_render))}
+        rel = {k: abs(v - losses["plain"]) / abs(losses["plain"])
+               for k, v in losses.items()}
+        log(f"  same draws, inverse branch: plain step loss "
+            f"{losses['plain']:.6g}, two-phase {losses['two_phase']:.6g} "
+            f"(rel {rel['two_phase']:.3g}), render-in-step "
+            f"{losses['render']:.6g} (rel {rel['render']:.3g}); limit "
+            f"{TRAIN_VARIANT_REL}")
+        check(max(rel.values()) <= TRAIN_VARIANT_REL,
+              "two-phase or render-in-step loss differs from the plain step")
+        result["variant_losses"] = losses
+        del m_plain, m_two, m_render, scene
+
+        # 4. Adafactor (its state replaces AdamW's)
+        def with_train(**over):
+            return dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, **over))
+
+        trainer.state = None
+        torch.cuda.empty_cache()
+        af_cfg = with_train(optimizer="adafactor")
+        state = create_train_state(af_cfg, trainer.dual)
+        step_fn = make_bank_train_step(af_cfg, *args[1:])
+        torch.cuda.reset_peak_memory_stats()
+        af = []
+        for inverse in (False, True):
+            reset_counters()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sd = draw_scenes(gen, bank_sizes(bank), 2, d)
+            dr = draw(gen, 2, (d.resolution // cfg.vae.downscale,) * 2,
+                      cfg.diffusion.num_train_timesteps, inverse)
+            m = step_fn(state, trainer.ctx, bank, sd, dr.to("cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, seen = read_counters()
+            train_launch_check(launches, seen,
+                               train_step_launches(cfg, 2, inverse, True),
+                               checked, "Adafactor step")
+            af.append(dict(wall_s=wall, loss=float(m["loss"]),
+                           grad_norm=float(m["grad_norm"])))
+            check(math.isfinite(af[-1]["loss"]), "Adafactor loss not finite")
+        af_peak = torch.cuda.max_memory_allocated()
+        af_state = sum(t.numel() * t.element_size()
+                       for st in state.optimizer.state.values()
+                       for t in st.values() if torch.is_tensor(t))
+        log(f"  Adafactor, 2 bank steps: {af[0]['wall_s']:.3f} / "
+            f"{af[1]['wall_s']:.3f} s, loss {af[0]['loss']:.5g} / "
+            f"{af[1]['loss']:.5g}; peak memory {af_peak / 2**30:.2f} GiB "
+            f"against AdamW's {adamw_peak / 2**30:.2f} GiB; optimizer state "
+            f"{af_state / 2**30:.3f} GiB")
+        result.update(adafactor_steps=af, adafactor_peak_bytes=af_peak,
+                      adafactor_state_bytes=af_state)
+        del state
+        torch.cuda.empty_cache()
+
+        # 5. gradient accumulation, k = 2, over AdamW
+        acc_cfg = with_train(gradient_accumulation_steps=2)
+        state = create_train_state(acc_cfg, trainer.dual)
+        step_fn = make_bank_train_step(acc_cfg, *args[1:])
+        params = state.params
+        watch = [n for n in (next(k for k in params if k.startswith(m))
+                             for m in ("unet.", "controlnet.",
+                                       "controldec."))]
+        before = {n: params[n].detach().clone() for n in watch}
+        moved = []
+        for call in range(4):
+            sd = draw_scenes(gen, bank_sizes(bank), 2, d)
+            dr = draw(gen, 2, (d.resolution // cfg.vae.downscale,) * 2,
+                      cfg.diffusion.num_train_timesteps, None)
+            step_fn(state, trainer.ctx, bank, sd, dr.to("cuda"))
+            changed = [not torch.equal(before[n], params[n]) for n in watch]
+            moved.append(all(changed))
+            check(all(changed) if call % 2 else not any(changed),
+                  f"accumulation k=2: watched parameters changed {changed} "
+                  f"at call {call + 1}")
+            before = {n: params[n].detach().clone() for n in watch}
+        log(f"  accumulation k=2 over 4 calls: parameters moved "
+            f"{moved} (calls 2 and 4 only); updates {state.updates}, "
+            f"steps {state.step}")
+        check(state.updates == 2 and state.step == 4,
+              f"accumulation: {state.updates} updates in {state.step} steps")
+        result["accumulation_moved"] = moved
+        del state, step_fn, params, before, trainer
+        torch.cuda.empty_cache()
+
+        # 6. VAE training at flagship widths from the bank
+        result["vae"] = vae_training(torch, cfg, bank, checked)
+        del bank
+        torch.cuda.empty_cache()
+
+        # 7. small(): validation, then resume
+        result.update(small_resume_and_validation(torch, tmp))
+    elapsed = time.perf_counter() - t_phase
+    log(f"  phase 12 took {elapsed:.1f} s")
+    result["seconds"] = elapsed
+    return result
+
+
+def vae_training(torch, cfg, bank, checked):
+    from unirenderer_tpu_torch.data.scene_bank import bank_sizes, draw_scenes
+    from unirenderer_tpu_torch.train.vae_train import (
+        build_vae, create_vae_train_state, make_vae_bank_train_step,
+        posterior_shape,
+    )
+    d = cfg.data
+    vae = build_vae(cfg, "cuda", SEED)
+    state = create_vae_train_state(vae)
+    step_fn = make_vae_bank_train_step(cfg, vae, 1e-4,
+                                       compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    want = dict(vae_train_calls(cfg).launches, rasterize=1,
+                flash_attention=0)
+    n_params = sum(p.numel() for p in state.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        sd = draw_scenes(gen, bank_sizes(bank), VAE_BATCH, d)
+        noise = torch.randn(posterior_shape(
+            cfg, (8 * VAE_BATCH, d.resolution, d.resolution, 3)),
+            generator=gen)
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step_fn(state, bank, sd, noise.to("cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, seen = read_counters()
+        train_launch_check(launches, seen,
+                           {k: v for k, v in want.items()
+                            if k != "flash_attention"}, checked, "VAE step")
+        check(launches["flash_attention"] == 0,
+              "the VAE step launched K2 (its attention is plain PyTorch)")
+        rec = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in rec.values()),
+              f"VAE step metrics not finite: {rec}")
+        steps.append(dict(wall_s=wall, **rec))
+        log(f"  VAE step {state.step} ({VAE_BATCH} scene x 8 maps at "
+            f"{d.resolution}^2, bf16): {wall:.3f} s, loss "
+            f"{rec['vae_loss']:.5g}, PSNR {rec['vae_psnr']:.3f} dB, K1 "
+            f"{launches['groupnorm_silu']} (config "
+            f"{want['groupnorm_silu']}), K4 {launches['rasterize']}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  VAE training: {n_params / 1e6:.1f} M f32 master params, warm "
+        f"step {steps[-1]['wall_s']:.3f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    del state, vae, step_fn
+    return dict(steps=steps, peak_bytes=peak, params=n_params,
+                launches_per_step=want)
+
+
+def small_resume_and_validation(torch, tmp):
+    """small() with the r05 weights on the card (bf16): validation on 4
+    held-out objects (seed 99) against the harness's inverse maps at the
+    same params and noise seed; then 2 bank steps from the held-out set's
+    bank with a checkpoint at step 2, a fresh Trainer resuming from it
+    (bit-equal state), one more step from each."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.data.scene_bank import load_scene_bank
+    from unirenderer_tpu_torch.data.synthetic import write_dataset
+    from unirenderer_tpu_torch.eval.quality import (
+        HELD_OUT, _held_out_batches, held_out_paths, inverse_scores,
+        small_trained_pipeline,
+    )
+    from unirenderer_tpu_torch.eval.validation import make_validation_fn
+    from unirenderer_tpu_torch.train.compare import (
+        small_weights, trainer_with,
+    )
+    import dataclasses
+    out = {}
+    root = os.path.join(tmp, "held_out")
+    t = time.perf_counter()
+    write_dataset(root, device="cuda", log=lambda msg: None, **HELD_OUT)
+    meshes, envs = held_out_paths(root)
+    cfg = config.small()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_every=2, batch_size_per_device=2))
+    bank = load_scene_bank(os.path.join(root, "meshes"),
+                           os.path.join(root, "envs"), cfg.data)
+    log(f"  held-out set (seed 99) written and loaded as a bank in "
+        f"{time.perf_counter() - t:.1f} s: T {bank['t_idx'].shape[1]}")
+
+    weights = small_weights()
+    workdir = os.path.join(tmp, "small")
+    tr = trainer_with(cfg, weights, "cuda", torch.bfloat16, workdir,
+                      scene_bank=bank)
+    # validation at the r05 weights
+    pipe = small_trained_pipeline("cuda", torch.bfloat16)
+    ref = inverse_scores(pipe, meshes, envs, n=4, num_steps=20,
+                         noise_seed=1000, ensemble=1)["psnr_maps"]
+    val_batch = next(_held_out_batches(pipe, meshes, envs, 4))
+    del pipe
+    masters = {n: p.detach().clone() for n, p in tr.state.params.items()}
+    fn = make_validation_fn(tr, val_batch, os.path.join(tmp, "validation"),
+                            num_steps=20, ensemble=1, noise_seed=1000)
+    got = fn(tr.state, 0)
+    diffs = {k: abs(got[f"psnr_{k}"] - v) for k, v in ref.items()}
+    log("  validation (4 held-out objects, 20 steps, noise seed 1000) "
+        "against the harness's inverse maps: "
+        + ", ".join(f"{k} {got['psnr_' + k]:.4f} vs {v:.4f} dB"
+                    for k, v in ref.items())
+        + f"; largest difference {max(diffs.values()):.3g} dB")
+    check(max(diffs.values()) <= VALIDATION_PSNR_ABS,
+          f"validation PSNRs differ from the harness's: {diffs}")
+    check(all(torch.equal(p, masters[n])
+              for n, p in tr.state.params.items()) and tr.dual.training,
+          "validation changed the masters or the module's mode")
+    out["validation"] = dict(psnr=got, reference=ref)
+    del masters
+
+    # resume
+    tr.train(max_steps=2)
+    check(tr.ckpt.all_steps() == [2], f"checkpoints {tr.ckpt.all_steps()}")
+    fresh = trainer_with(cfg, weights, "cuda", torch.bfloat16, workdir,
+                         scene_bank=bank)
+    check(fresh.maybe_resume() == 2, "the fresh Trainer did not resume")
+    same = [torch.equal(p, q) for p, q in zip(tr.state.params.values(),
+                                              fresh.state.params.values())]
+    sa = tr.state.optimizer.state_dict()["state"]
+    sb = fresh.state.optimizer.state_dict()["state"]
+    same_opt = all(torch.equal(sa[i][k], sb[i][k]) for i in sa
+                   for k in sa[i])
+    same_gen = torch.equal(tr.generator.get_state(),
+                           fresh.generator.get_state())
+    log(f"  resume at step 2: params bit-equal {all(same)} ({len(same)} "
+        f"tensors), optimizer state bit-equal {same_opt}, step "
+        f"{fresh.state.step}, generator state equal {same_gen}")
+    check(all(same) and same_opt and same_gen and fresh.state.step == 2,
+          "the resumed state differs from the saved one")
+    la = float(tr.step()["loss"])
+    lb = float(fresh.step()["loss"])
+    rel = abs(la - lb) / abs(la)
+    log(f"  one more step from each: loss {la:.6g} vs {lb:.6g} (rel "
+        f"{rel:.3g}, limit {TRAIN_VARIANT_REL}; K2 bwd's dQ atomics are the "
+        f"one source of order)")
+    check(rel <= TRAIN_VARIANT_REL, "the resumed run's step differs")
+    out["resume"] = dict(loss=la, loss_resumed=lb, rel=rel)
+    del tr, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1962,6 +2509,9 @@ def phase2_cases(cfg):
         gn, attn = calls.signatures
         modes_gn |= gn - gn_cases
         modes_attn |= attn - attn_cases
+    # phase 12's VAE training step (K1 only: the mid-block attention is
+    # plain PyTorch), after every earlier case
+    vae_gn = vae_train_calls(cfg).signatures[0] - gn_cases - modes_gn
     ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                  ((1, 33, 31, 1920), 32, 1e-6, False)]
     ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -1978,7 +2528,8 @@ def phase2_cases(cfg):
         bwd_jobs=sorted(train_attn) + ragged_attn,
         modes_gn=[(c, "bfloat16") for c in sorted(modes_gn)],
         modes_attn=sorted(modes_attn),
-        checked={"groupnorm_silu": gn_cases | modes_gn,
+        vae_gn=[(c, "bfloat16") for c in sorted(vae_gn)],
+        checked={"groupnorm_silu": gn_cases | modes_gn | vae_gn,
                  "flash_attention": attn_cases | modes_attn,
                  "flash_attention_backward": set(train_attn),
                  "splash_attention": set(routed),
@@ -2059,13 +2610,14 @@ def main(argv=None) -> int:
                 f"route cases, {len(cases['train_attn'])} attention "
                 f"backward cases + ragged (tolerance 2^-6 * max|ref|), "
                 f"{len(cases['modes_gn'])} GroupNorm and "
-                f"{len(cases['modes_attn'])} attention cases of phase 11")
+                f"{len(cases['modes_attn'])} attention cases of phase 11, "
+                f"{len(cases['vae_gn'])} GroupNorm cases of phase 12")
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, cases["gn_jobs"], cases["attn_jobs"],
                 cases["route_cases"], cases["bwd_jobs"],
                 cases["later_routes"], cases["later_gn"], cases["modes_gn"],
-                cases["modes_attn"])
+                cases["modes_attn"], cases["vae_gn"])
             del timer
             fresh = k2_fresh_draws(torch)
             log(f"  K2 err / tol at (2,4096,8,40) on {len(fresh)} fresh "
@@ -2165,6 +2717,15 @@ def main(argv=None) -> int:
             record["sampling_modes"] = phase_sampling_modes(torch, F, cfg,
                                                             checked)
             log(f"phase 11 done in {time.perf_counter() - t:.1f} s")
+        # ---- 12: the rest of training
+        if 12 in phases:
+            log("phase 12 the rest of training: flagship scene-bank steps, "
+                "render-in-step, two-phase, Adafactor, accumulation, VAE "
+                "training; small() validation and resume")
+            rest = phase_rest_of_training(torch, cfg, checked)
+            results += rest["rasterize_cases"]
+            record["rest_of_training"] = rest
+            log("phase 12 done")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

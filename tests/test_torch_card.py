@@ -31,6 +31,7 @@ weights, 3 steps, on the card within 0.05 * max|ref| of f32 on the CPU.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -692,3 +693,105 @@ def test_sampling_modes_on_card_match_cpu(small_pipes, monkeypatch, mode):
         err = (g.cpu() - w).abs().max().item()
         tol = 0.05 * w.abs().max().item()
         assert torch.isfinite(g).all() and err <= tol, (what, err, tol)
+
+
+def test_small_bank_step_on_card_matches_cpu(card):
+    """small() scene-bank steps with the trained r05 weights: scenes drawn
+    from `synthetic_bank` on each device from the same draws (seed 21),
+    collated (K4 on the card), one step's gradients on the card (bf16)
+    against f32 on the CPU, both branches (`train.compare.compare_bank`).
+    The collates agree to 1e-3 on >= 99 % of values (the collate test's
+    rule); the step's loss within 1 % and the gradient cosine >= 0.995.
+    The card read 0.832 % / 0.99759 (inverse) and 0.272 % / 0.99942
+    (forward) here, the plain bf16 step on the CPU 0.162 % / 0.99912 and
+    0.252 % / 0.99983.  The cosine is held below phase 9's 0.999 because
+    the card's bf16 step reads the same with K1, K2 and K2 bwd replaced
+    by their plain versions, with cuDNN, TF32 or cuBLAS's reduced bf16
+    sums off (0.99668-0.99759): the gap is not the kernels' (PERF.md,
+    the rest-of-training findings)."""
+    from unirenderer_tpu_torch.data.scene_bank import synthetic_bank
+    from unirenderer_tpu_torch.train.compare import compare_bank
+    out = compare_bank([f"{card.type}:bfloat16", "cpu:float32"],
+                       synthetic_bank(config.small().data), seeds=(21,))
+    for step, r in out.items():
+        assert r["collate_within_1e-3"] >= 0.99, (step, r)
+        assert r["loss_rel_err"] <= 0.01, (step, r)
+        assert r["grad_cos"] >= 0.995, (step, r)
+
+
+def test_adafactor_on_card_matches_cpu(card):
+    """Three Adafactor updates (global-norm clip, warmup-cosine learning
+    rate) of the same parameters from the same gradients on the card and
+    on the CPU, f32: within 1e-4 relative (reduction order only)."""
+    import copy
+    from torch import nn
+    from unirenderer_tpu_torch.core.convert import flax_permutations
+    from unirenderer_tpu_torch.train.train_step import (
+        TrainState, make_optimizer, make_update_fn,
+    )
+    cfg = config.tiny()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer="adafactor", learning_rate=1e-2,
+        lr_schedule="cosine", lr_warmup_steps=1, lr_decay_steps=5))
+    torch.manual_seed(0)
+    mods = [nn.Sequential(nn.Conv2d(128, 256, 3), nn.Linear(160, 192),
+                          nn.GroupNorm(4, 16))]
+    mods.append(copy.deepcopy(mods[0]).to(card))
+    states = []
+    for m in mods:
+        params = dict(m.named_parameters())
+        states.append(TrainState(params, make_optimizer(
+            cfg, params, flax_permutations(m))))
+    update = make_update_fn(cfg)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        grads = [torch.randn(p.shape, generator=gen)
+                 for p in states[0].params.values()]
+        for st in states:
+            dev = next(iter(st.params.values())).device
+            update(st, [g.to(dev) for g in grads])
+    for (n, p), q in zip(states[0].params.items(),
+                         states[1].params.values()):
+        err = (q.cpu() - p).abs().max().item()
+        assert err <= 1e-4 * p.abs().max().item(), (n, err)
+
+
+def test_prefetched_collate_on_a_side_stream_matches(card, tmp_path):
+    """`rendered_batches(prefetch=2)` on the card (the collate in a thread
+    on a side CUDA stream, the consumer waiting on its event) gives the
+    same batches as the collate in the loop, and a tiny() Trainer's steps
+    on the card consume them as they come: the same losses within 1e-3
+    relative (the first bit-equal; later ones follow K2 bwd's dQ
+    atomics)."""
+    from unirenderer_tpu_torch.data.objaverse import ObjaverseData
+    from unirenderer_tpu_torch.data.synthetic import write_dataset
+    from unirenderer_tpu_torch.eval.quality import held_out_paths
+    from unirenderer_tpu_torch.train.trainer import Trainer, rendered_batches
+    write_dataset(str(tmp_path), n_mesh=3, n_env=1, env_res=32,
+                  env_min_res=8, env_samples=16, sphere_res=16, tex_res=32,
+                  device=card, log=lambda msg: None)
+    meshes, envs = held_out_paths(str(tmp_path))
+    cfg = config.tiny()
+
+    def batches(prefetch):
+        tr = Trainer(cfg, str(tmp_path / f"t{prefetch}"), device=card)
+        gen = rendered_batches(ObjaverseData(config.small().data, meshes,
+                                             envs, seed=1), 2,
+                               cfg.data.resolution, 2, device=card, seed=4,
+                               prefetch=prefetch)
+        out, losses = [], []
+        for i in range(4):
+            b = next(gen)
+            losses.append(tr.step(b, is_inverse=bool(i % 2))["loss"])
+            out.append({k: (v * 1.0).cpu() for k, v in b.items()})
+        gen.close()
+        return out, [float(x) for x in losses]
+
+    (a_maps, a_loss), (b_maps, b_loss) = batches(0), batches(2)
+    for a, b in zip(a_maps, b_maps):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert a_loss[0] == b_loss[0], (a_loss, b_loss)
+    for x, y in zip(a_loss, b_loss):
+        assert math.isfinite(x) and abs(x - y) <= 1e-3 * abs(x), (a_loss,
+                                                                  b_loss)

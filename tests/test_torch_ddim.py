@@ -86,7 +86,15 @@ def test_the_port_imports_no_jax():
         unirenderer_tpu_torch.__path__, "unirenderer_tpu_torch."))
     assert {"unirenderer_tpu_torch.pipelines",
             "unirenderer_tpu_torch.render.light",
-            "unirenderer_tpu_torch.diffusion.samplers"} <= set(names)
+            "unirenderer_tpu_torch.diffusion.samplers",
+            "unirenderer_tpu_torch.core.tracing",
+            "unirenderer_tpu_torch.core.debug",
+            "unirenderer_tpu_torch.data.scene_bank",
+            "unirenderer_tpu_torch.data.input_pipeline",
+            "unirenderer_tpu_torch.eval.validation",
+            "unirenderer_tpu_torch.train.adafactor",
+            "unirenderer_tpu_torch.train.vae_train",
+            "unirenderer_tpu_torch.train.vae"} <= set(names)
     code = (
         "import importlib, sys\n"
         "class Refuse:\n"

@@ -24,7 +24,7 @@ JAX reader, and the training loop, at `tiny()` on the CPU.
     tests/test_training_learns.py: mean of the last 5 of 25 steps below
     0.9 x the first 5);
   * `python -m unirenderer_tpu_torch.train --tiny --synthetic --steps 3
-    --device cpu` writes metrics.jsonl and a params npz.
+    --device cpu` writes metrics.jsonl and a checkpoint's params npz.
 """
 
 import dataclasses
@@ -225,7 +225,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert [r["step"] for r in recs] == [1]
     assert np.isfinite(recs[0]["loss"]) and "grad_norm" in recs[0]
     flat, step = load_params_npz(
-        str(tmp_path / "checkpoints" / "params_00000003.npz"))
+        str(tmp_path / "checkpoints" / "checkpoint-3" / "params.npz"))
     assert step == 3 and all(k.startswith("params/") for k in flat)
 
 

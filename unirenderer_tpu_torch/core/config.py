@@ -134,11 +134,10 @@ class DataConfig:
 class TrainConfig:
     """Loss weights and loop settings: the fields of the JAX package's
     TrainConfig that the port's trainer reads, with its defaults (except
-    `compute_dtype`).  `validation_every`, `checkpoints_total_limit` and
-    `mesh_axes` come with the slices that read them."""
+    `compute_dtype`).  `mesh_axes` comes with the slice that reads it."""
     batch_size_per_device: int = 2
     learning_rate: float = 5e-6
-    optimizer: str = "adamw"                        # the port: adamw only
+    optimizer: str = "adamw"                        # "adamw" | "adafactor"
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     adam_weight_decay: float = 1e-2
@@ -148,9 +147,12 @@ class TrainConfig:
     lr_warmup_steps: int = 0
     lr_decay_steps: int = 0                         # cosine horizon
     lr_end_factor: float = 0.1                      # final lr = lr * this
-    gradient_accumulation_steps: int = 1            # the port: 1 only
+    # k > 1: optax MultiSteps, one optimizer update per k calls
+    gradient_accumulation_steps: int = 1
     max_steps: int = 5_000_000
     checkpoint_every: int = 5000
+    validation_every: int = 5000
+    checkpoints_total_limit: int = 5
     seed: int = 42
     # loss weights
     w_img: float = 1.0

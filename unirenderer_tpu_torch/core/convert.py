@@ -16,7 +16,7 @@ direction (a trained module -> flax params for the JAX package).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,13 +84,34 @@ def _flax_leaf(mod: nn.Module, name: str, t: torch.Tensor):
     raise ValueError(f"{type(mod).__name__}.weight of rank {a.ndim}")
 
 
-def flax_from_module(module: nn.Module) -> Dict[str, np.ndarray]:
+def flax_from_module(module: nn.Module,
+                     tensors: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> Dict[str, np.ndarray]:
     """The module's parameters as {flax path joined with '/': f32 array},
-    under `params` (the inverse of `state_dict_from_flax`)."""
+    under `params` (the inverse of `state_dict_from_flax`); with
+    `tensors` ({parameter name: tensor}) their values in place of the
+    module's own."""
     out: Dict[str, np.ndarray] = {}
     for mod_name, mod in module.named_modules():
         for name, t in mod.named_parameters(recurse=False):
+            if tensors is not None:
+                t = tensors[f"{mod_name}.{name}" if mod_name else name]
             leaf, a = _flax_leaf(mod, name, t)
             path = ["params"] + (mod_name.split(".") if mod_name else [])
             out["/".join(path + [leaf])] = np.ascontiguousarray(a)
+    return out
+
+
+def flax_permutations(module: nn.Module) -> Dict[str, Optional[Tuple[int, ...]]]:
+    """{parameter name: the permutation of its dimensions that gives its
+    flax layout (`t.permute(perm)`), or None where the layouts agree}:
+    conv weights (O, I, kh, kw) -> (kh, kw, I, O), linear weights
+    (O, I) -> (I, O); embeddings, norm scales and biases keep theirs."""
+    out: Dict[str, Optional[Tuple[int, ...]]] = {}
+    for mod_name, mod in module.named_modules():
+        for name, t in mod.named_parameters(recurse=False):
+            perm = None
+            if name == "weight" and not isinstance(mod, nn.Embedding):
+                perm = {4: (2, 3, 1, 0), 2: (1, 0)}.get(t.dim())
+            out[f"{mod_name}.{name}" if mod_name else name] = perm
     return out

@@ -10,6 +10,7 @@ rasterizer launch for all views) and assembles the 8 training maps in
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -211,6 +212,13 @@ def stack_scene(items: List[Dict]) -> Dict[str, np.ndarray]:
     return scene
 
 
+@functools.lru_cache(maxsize=None)
+def _fg_table(device: torch.device) -> torch.Tensor:
+    """The FG table (res, res, 2) on `device`, uploaded once per device
+    (read-only: `render_mesh` only samples it)."""
+    return tex.fg_lut()[0].to(device)
+
+
 def collate_from_scene(scene: Dict[str, torch.Tensor], resolution: int,
                        ssaa: int = 2, bg: float = 1.0
                        ) -> Dict[str, torch.Tensor]:
@@ -231,8 +239,7 @@ def collate_from_scene(scene: Dict[str, torch.Tensor], resolution: int,
     metallics, roughnesses = scene["metallics"], scene["roughnesses"]
     bufs = render_mesh(mesh, scene["mvps"], scene["camposes"], env,
                        metallics, roughnesses, resolution * ssaa,
-                       kd_texture=scene["kds"],
-                       fg_lut=tex.fg_lut()[0].to(dev))
+                       kd_texture=scene["kds"], fg_lut=_fg_table(dev))
 
     def down(x):
         return ssaa_downsample(x, ssaa) if ssaa > 1 else x

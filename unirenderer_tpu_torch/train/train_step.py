@@ -1,5 +1,7 @@
 """The dual-schedule train step (counterpart of
-`unirenderer_tpu/train/train_step.py` `make_loss_fn` / `make_train_step`).
+`unirenderer_tpu/train/train_step.py`: `make_loss_fn`, `make_train_step`,
+`make_two_phase_train_step`, `make_render_train_step`,
+`make_bank_train_step`, `make_optimizer`).
 
 One step: the 8 maps of `BATCH_KEYS` VAE-encoded in one batched call (the
 VAE is frozen: no gradient), noise on the env latent, the dual timestep
@@ -13,6 +15,13 @@ Random numbers are split from the loss: `draw` takes every random number
 of a step from a host `torch.Generator` (the JAX step splits its key in
 7), and `loss_from_draws` is deterministic given them, so tests can feed
 it the JAX step's own draws.
+
+The optimizer is AdamW or Adafactor (`TrainConfig.optimizer`, optax's
+updates: `train/adafactor.py`), after global-norm clipping; with
+`gradient_accumulation_steps` k > 1 the update is optax's `MultiSteps`:
+a running mean of the micro-batch gradients, the clip and the optimizer
+applied to it on every k-th call only (the parameters do not move in
+between), and the learning rate indexed by those inner updates.
 
 Precision, as in the JAX step: the parameters are f32 masters; each step
 computes with copies cast to the compute type (bf16 on the card, whose
@@ -35,12 +44,14 @@ import torch
 from torch import nn
 
 from unirenderer_tpu_torch.core.config import LATENT_CHANNELS, SystemConfig
+from unirenderer_tpu_torch.core.convert import flax_permutations
 from unirenderer_tpu_torch.diffusion.schedule import (
     DiffusionSchedule, compute_dual_t,
 )
 from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
 from unirenderer_tpu_torch.models.vae import AutoencoderKL
 from unirenderer_tpu_torch.pipelines import KernelCalls, UniRendererPipeline
+from unirenderer_tpu_torch.train.adafactor import Adafactor
 from unirenderer_tpu_torch.train.losses import dual_stream_loss
 
 # (B, H, W, 3) maps in [-1, 1]: the 8 modalities the step VAE-encodes
@@ -48,8 +59,27 @@ BATCH_KEYS = ("image", "material", "mask", "env", "normal", "albedo",
               "spec_light", "diff_light")
 
 
+def warmup_cosine(peak: float, warmup: int, decay_steps: int,
+                  end: float) -> Callable[[int], float]:
+    """optax's `warmup_cosine_decay_schedule(0, peak, warmup, decay_steps,
+    end)`: a linear ramp over `warmup` steps, then a cosine from `peak` to
+    `end` over the remaining steps, `end` after."""
+    decay = decay_steps - warmup
+    if decay <= 0:
+        raise ValueError("cosine schedule needs decay steps > warmup steps")
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def cosine(step: int) -> float:
+        if step < warmup:
+            return peak * step / warmup
+        count = min(step - warmup, decay)
+        cos = 0.5 * (1 + math.cos(math.pi * count / decay))
+        return peak * ((1 - alpha) * cos + alpha)
+    return cosine
+
+
 def make_lr_schedule(cfg: SystemConfig) -> Callable[[int], float]:
-    """step (the number of updates so far) -> learning rate, as optax
+    """the number of optimizer updates so far -> learning rate, as optax
     computes `warmup_cosine_decay_schedule`, `linear_schedule` and a
     constant for TrainConfig.lr_schedule / lr_warmup_steps."""
     t = cfg.train
@@ -57,21 +87,8 @@ def make_lr_schedule(cfg: SystemConfig) -> Callable[[int], float]:
     if t.lr_schedule == "cosine":
         if t.lr_decay_steps <= 0:
             raise ValueError("cosine schedule needs lr_decay_steps")
-        warmup = max(t.lr_warmup_steps, 1)
-        decay = t.lr_decay_steps - warmup
-        if decay <= 0:
-            raise ValueError("cosine schedule needs lr_decay_steps > "
-                             "lr_warmup_steps")
-        end = peak * t.lr_end_factor
-        alpha = 0.0 if peak == 0.0 else end / peak
-
-        def cosine(step: int) -> float:
-            if step < warmup:
-                return peak * step / warmup
-            count = min(step - warmup, decay)
-            cos = 0.5 * (1 + math.cos(math.pi * count / decay))
-            return peak * ((1 - alpha) * cos + alpha)
-        return cosine
+        return warmup_cosine(peak, max(t.lr_warmup_steps, 1),
+                             t.lr_decay_steps, peak * t.lr_end_factor)
     if t.lr_schedule != "constant":
         raise ValueError(f"lr_schedule {t.lr_schedule!r}")
     if t.lr_warmup_steps > 0:
@@ -80,21 +97,28 @@ def make_lr_schedule(cfg: SystemConfig) -> Callable[[int], float]:
     return lambda step: peak
 
 
-def make_optimizer(cfg: SystemConfig,
-                   params: Mapping[str, torch.Tensor]
-                   ) -> torch.optim.Optimizer:
-    """AdamW with the config's betas, eps and decoupled weight decay:
-    the update optax's `adamw` makes.  The learning rate is set from
+def make_optimizer(cfg: SystemConfig, params: Mapping[str, torch.Tensor],
+                   layouts: Optional[Mapping[str, Optional[Tuple[int, ...]]]]
+                   = None) -> torch.optim.Optimizer:
+    """The update optax's `adamw` (the config's betas, eps and decoupled
+    weight decay) or `adafactor(lr, clipping_threshold=1.0,
+    weight_decay_rate=adam_weight_decay)` makes.  Adafactor needs each
+    parameter's permutation to its flax layout (`layouts`,
+    `core/convert.flax_permutations`).  The learning rate is set from
     `make_lr_schedule` before every update."""
     t = cfg.train
-    if t.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {t.optimizer!r}: the port has "
-                                  f"AdamW only (adafactor is queued)")
-    if t.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient accumulation is queued")
-    return torch.optim.AdamW(list(params.values()), lr=t.learning_rate,
-                             betas=(t.adam_beta1, t.adam_beta2),
-                             eps=t.adam_eps, weight_decay=t.adam_weight_decay)
+    if t.optimizer == "adamw":
+        return torch.optim.AdamW(list(params.values()), lr=t.learning_rate,
+                                 betas=(t.adam_beta1, t.adam_beta2),
+                                 eps=t.adam_eps,
+                                 weight_decay=t.adam_weight_decay)
+    if t.optimizer == "adafactor":
+        if layouts is None:
+            raise ValueError("adafactor needs the parameters' flax layouts")
+        return Adafactor([(p, layouts[n]) for n, p in params.items()],
+                         lr=t.learning_rate, clipping_threshold=1.0,
+                         weight_decay_rate=t.adam_weight_decay)
+    raise ValueError(f"optimizer {t.optimizer!r}: 'adamw' or 'adafactor'")
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -132,8 +156,10 @@ class Draws:
     noise_cycle: torch.Tensor        # (B, h, w, 4)
 
     def to(self, device) -> "Draws":
+        """The draws on `device` (to the card without a host sync)."""
+        from unirenderer_tpu_torch.data.scene_bank import host_to_device
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: host_to_device(getattr(self, f.name), device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
@@ -247,20 +273,28 @@ def make_loss_fn(cfg: SystemConfig, dual: DualStreamModel,
 @dataclasses.dataclass
 class TrainState:
     """The f32 master parameters (the dual-stream module's own, by name),
-    the optimizer over them and the number of updates taken."""
+    the optimizer over them, the number of steps taken (`step`, one per
+    call as the JAX `TrainState.step`) and of optimizer updates
+    (`updates`, the learning rate's index), and under gradient
+    accumulation the micro-steps into the current update and their
+    running mean (`mini_step`, `acc`: None between updates)."""
     params: Dict[str, nn.Parameter]
     optimizer: torch.optim.Optimizer
     step: int = 0
+    updates: int = 0
+    mini_step: int = 0
+    acc: Optional[List[torch.Tensor]] = None
 
 
 def create_train_state(cfg: SystemConfig,
-                       dual: DualStreamModel) -> TrainState:
+                       dual: nn.Module) -> TrainState:
     params = dict(dual.named_parameters())
     for p in params.values():
         if p.dtype != torch.float32:
             raise TypeError(f"master parameters must be f32, got {p.dtype}")
         p.requires_grad_(True)
-    return TrainState(params, make_optimizer(cfg, params))
+    return TrainState(params, make_optimizer(cfg, params,
+                                             flax_permutations(dual)))
 
 
 def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
@@ -290,46 +324,149 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
     return grad_fn
 
 
+def make_update_fn(cfg: SystemConfig):
+    """-> update(state, grads) -> the norm of `grads` (on the device): the
+    optimizer side of a step (optax's `MultiSteps` over clip + optimizer
+    when accumulating), `state` updated in place, `grads` (f32, in the
+    order of `state.params`) consumed."""
+    t = cfg.train
+    lr = make_lr_schedule(cfg)
+    max_norm, k = t.max_grad_norm, t.gradient_accumulation_steps
+
+    def update(state: TrainState,
+               grads: List[torch.Tensor]) -> torch.Tensor:
+        state.step += 1
+        norm = None
+        if k > 1:
+            norm = global_norm(grads)
+            if state.acc is None:
+                state.acc = [torch.zeros_like(g) for g in grads]
+            n = state.mini_step          # optax: acc + (g - acc) / (n + 1)
+            torch._foreach_add_(state.acc, torch._foreach_div(
+                torch._foreach_sub(grads, state.acc), n + 1))
+            if n + 1 < k:
+                state.mini_step = n + 1
+                return norm
+            grads, state.acc, state.mini_step = state.acc, None, 0
+        if max_norm > 0:
+            clipped = clip_by_global_norm_(grads, max_norm)
+        else:
+            clipped = global_norm(grads) if norm is None else norm
+        for p, g in zip(state.params.values(), grads):
+            p.grad = g
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr(state.updates)
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.updates += 1
+        return clipped if norm is None else norm
+
+    return update
+
+
 def make_train_step(cfg: SystemConfig, dual: DualStreamModel,
                     vae: AutoencoderKL, schedule: DiffusionSchedule,
                     compute_dtype: torch.dtype):
-    """-> train_step(state, ctx, batch, draws) -> metrics: gradients,
-    global-norm clipping at max_grad_norm (<= 0: none), the learning rate
-    of the step, AdamW; `state` is updated in place.  metrics["grad_norm"]
-    is the norm before clipping."""
+    """-> train_step(state, ctx, batch, draws) -> metrics: gradients, then
+    `make_update_fn`'s update (global-norm clipping at max_grad_norm, <= 0:
+    none; the learning rate of the update; AdamW or Adafactor; under
+    accumulation every k-th call); `state` is updated in place.
+    metrics["grad_norm"] is the norm of this call's gradients before
+    clipping."""
     grad_fn = make_grad_fn(cfg, dual, vae, schedule, compute_dtype)
-    lr = make_lr_schedule(cfg)
-    max_norm = cfg.train.max_grad_norm
+    update = make_update_fn(cfg)
 
     def train_step(state: TrainState, ctx: torch.Tensor,
                    batch: Mapping[str, torch.Tensor],
                    draws: Draws) -> Dict[str, torch.Tensor]:
         grads, metrics = grad_fn(state.params, batch, ctx, draws)
-        if max_norm > 0:
-            metrics["grad_norm"] = clip_by_global_norm_(grads, max_norm)
-        else:
-            metrics["grad_norm"] = global_norm(grads)
-        for p, g in zip(state.params.values(), grads):
-            p.grad = g
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr(state.step)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
+        metrics["grad_norm"] = update(state, grads)
         return metrics
 
     return train_step
 
 
-def train_step_launches(cfg: SystemConfig, batch: int,
-                        is_inverse: bool) -> Dict[str, int]:
+def make_two_phase_train_step(cfg: SystemConfig, dual: DualStreamModel,
+                              vae: AutoencoderKL,
+                              schedule: DiffusionSchedule,
+                              compute_dtype: torch.dtype,
+                              batch_transform: Optional[Callable] = None):
+    """The step as two calls, (grad_step, update_step): grad_step(params,
+    ctx, batch, draws) -> (grads, metrics), with `batch_transform` (e.g.
+    a render collate) applied to `batch` first, and update_step(state,
+    grads) -> the gradients' norm.  The same operations in the same order
+    as `make_train_step`.  It exists for parity with the JAX package's
+    API, which splits its step in two to fit a 16 GB chip's allocator;
+    the port's trainer does not need the split and runs the fused step."""
+    grad_fn = make_grad_fn(cfg, dual, vae, schedule, compute_dtype)
+
+    def grad_step(params: Mapping[str, torch.Tensor], ctx, batch,
+                  draws: Draws):
+        if batch_transform is not None:
+            with torch.no_grad():
+                batch = batch_transform(batch)
+        return grad_fn(params, {k: batch[k] for k in BATCH_KEYS}, ctx, draws)
+
+    return grad_step, make_update_fn(cfg)
+
+
+def make_render_train_step(cfg: SystemConfig, dual: DualStreamModel,
+                           vae: AutoencoderKL, schedule: DiffusionSchedule,
+                           compute_dtype: torch.dtype, resolution: int = 0,
+                           ssaa: int = 0, bg: float = 1.0):
+    """Render-in-step: -> step(state, ctx, scene, draws) -> metrics, the
+    render collate (`collate_from_scene`: K4 and the shading, on the
+    scene's device) of a stacked scene (`data/objaverse.stack_scene`'s
+    layout, as tensors) followed by `make_train_step`'s step."""
+    from unirenderer_tpu_torch.data.objaverse import collate_from_scene
+    base = make_train_step(cfg, dual, vae, schedule, compute_dtype)
+    res = resolution or cfg.data.resolution
+    ss = ssaa or cfg.data.ssaa
+
+    def render_train_step(state: TrainState, ctx: torch.Tensor,
+                          scene: Mapping[str, torch.Tensor],
+                          draws: Draws) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            batch = collate_from_scene(scene, res, ssaa=ss, bg=bg)
+        return base(state, ctx, {k: batch[k] for k in BATCH_KEYS}, draws)
+
+    return render_train_step
+
+
+def make_bank_train_step(cfg: SystemConfig, dual: DualStreamModel,
+                         vae: AutoencoderKL, schedule: DiffusionSchedule,
+                         compute_dtype: torch.dtype, resolution: int = 0,
+                         ssaa: int = 0, bg: float = 1.0,
+                         augment: bool = True):
+    """Fresh-scenes training: -> step(state, ctx, bank, scene_draws,
+    draws) -> metrics: a batch of new scenes from the device-resident
+    bank (`data/scene_bank.scenes_from_draws`, with `augment`), the
+    render collate, and `make_train_step`'s step.  Only the draws cross
+    from the host."""
+    from unirenderer_tpu_torch.data.scene_bank import scenes_from_draws
+    render_step = make_render_train_step(cfg, dual, vae, schedule,
+                                         compute_dtype, resolution, ssaa, bg)
+
+    def bank_train_step(state: TrainState, ctx: torch.Tensor,
+                        bank: Mapping[str, torch.Tensor], scene_draws,
+                        draws: Draws) -> Dict[str, torch.Tensor]:
+        scene = scenes_from_draws(bank, scene_draws, cfg.data,
+                                  augment=augment)
+        return render_step(state, ctx, scene, draws)
+
+    return bank_train_step
+
+
+def train_step_launches(cfg: SystemConfig, batch: int, is_inverse: bool,
+                        render: bool = False) -> Dict[str, int]:
     """Kernel launches of one train step, worked out from the config
     (`pipelines.KernelCalls`): K1 (the VAE encoder's norms and the
     dual-stream norms), K2 forward (every dual-stream attention call), K2
     backward (one per attention call); under remat the down and up blocks'
     K1 and K2 forward calls run again in the backward.  The main pass runs
     the attribute encoder, the UNet and the attribute decoder; an inverse
-    step's cycle pass the encoder and the UNet again."""
+    step's cycle pass the encoder and the UNet again.  With `render` (the
+    render-in-step and bank steps) the collate adds one K4 launch."""
     size = cfg.vae.sample_size
     encoders, decoders = (4, 3) if is_inverse else (2, 2)
     fwd, bwd = KernelCalls(cfg, size), KernelCalls(cfg, size)
@@ -340,9 +477,12 @@ def train_step_launches(cfg: SystemConfig, batch: int,
         for _ in range(decoders):
             calls.decoder_half(batch, block_runs)
     fwd.vae_encoder(len(BATCH_KEYS) * batch)
-    return {"groupnorm_silu": sum(fwd.gn.values()),
-            "flash_attention": sum(fwd.attn.values()),
-            "flash_attention_backward": sum(bwd.attn.values())}
+    out = {"groupnorm_silu": sum(fwd.gn.values()),
+           "flash_attention": sum(fwd.attn.values()),
+           "flash_attention_backward": sum(bwd.attn.values())}
+    if render:
+        out["rasterize"] = 1
+    return out
 
 
 def train_kernel_cases(cfg: SystemConfig, batch: int, image_size: int):

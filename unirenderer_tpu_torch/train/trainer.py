@@ -1,43 +1,58 @@
 """The training loop (counterpart of `unirenderer_tpu/train/trainer.py`
-`Trainer` on its default path: rendered batches from an iterator, no
-render in the step, no scene bank).
+`Trainer`).
 
 The dual-stream model is built on the device as f32 masters from seeded
 random weights (every tensor filled, the zero convs too, as
 `pipelines.fill_random_` does); the VAE and the text encoder are frozen in
-the compute type; the blank-prompt context is computed once.  `train`
-draws each step's random numbers from a host generator seeded from
-`TrainConfig.seed`, logs `metrics.jsonl` at step 1 and every 10 steps as
-the JAX loop does, raises on a non-finite loss, and writes the params npz
-(`core/checkpoint.save_params_npz`, the JAX package's format) every
-`checkpoint_every` steps and at the end.
+the compute type; the blank-prompt context is computed once.  A step's
+batch comes from one of three places:
 
-Not here yet (queued): resuming with optimizer state, the asynchronous
-saver, validation, FSDP, `render_in_step` and the scene bank.
+  * rendered maps from an iterator (`rendered_batches`: the render
+    collate, optionally prefetched on a side stream; `synthetic_batches`;
+    a cached pool);
+  * `render_in_step`: stacked scenes from an iterator, rendered inside the
+    step (`train_step.make_render_train_step`);
+  * `scene_bank`: fresh scenes drawn every step from a bank uploaded to
+    the device once (`train_step.make_bank_train_step`).
+
+Every random number of a step (the scenes' and the step's) is drawn from
+one host generator seeded from `TrainConfig.seed`.  `train` resumes from
+the newest checkpoint in `<workdir>/checkpoints` (params, optimizer
+state, step counters and the generator's state: a resumed run continues
+the same draws), logs `metrics.jsonl` at its first step and every
+`LOG_EVERY` steps (the only host reads of the metrics; `AnomalyGuard`
+checks them), checkpoints every `checkpoint_every` steps through the
+asynchronous saver (rotation to `checkpoints_total_limit`) and at the
+end, runs `validation_fn` every `validation_every` steps, and appends
+the phase timer's totals to `phases.jsonl`.
 """
 
 from __future__ import annotations
 
-import json
-import math
+import itertools
 import os
-import time
-from typing import Dict, Iterator, Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
-from unirenderer_tpu_torch.core.checkpoint import save_params_npz
+from unirenderer_tpu_torch.core.checkpoint import AsyncSaver, CheckpointManager
 from unirenderer_tpu_torch.core.config import SystemConfig, TrainConfig
-from unirenderer_tpu_torch.core.convert import flax_from_module, load_flax
+from unirenderer_tpu_torch.core.convert import load_flax
+from unirenderer_tpu_torch.core.debug import AnomalyGuard
+from unirenderer_tpu_torch.core.tracing import MetricLogger, PhaseTimer
 from unirenderer_tpu_torch.diffusion.schedule import DiffusionSchedule
 from unirenderer_tpu_torch.models.clip_text import CLIPTextEncoder, blank_ids
 from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
 from unirenderer_tpu_torch.models.vae import AutoencoderKL
 from unirenderer_tpu_torch.pipelines import fill_random_
 from unirenderer_tpu_torch.train.train_step import (
-    BATCH_KEYS, TrainState, create_train_state, draw, make_train_step,
+    BATCH_KEYS, TrainState, create_train_state, draw, make_bank_train_step,
+    make_render_train_step, make_train_step,
 )
+
+# steps between two logged (host-read) metrics records, as the JAX loop
+LOG_EVERY = 10
 
 
 def resolve_device(device) -> torch.device:
@@ -76,12 +91,19 @@ class Trainer:
     """Owns the models, the train state and the step loop on one device;
     the step computes in `resolve_compute_dtype(cfg.train, device)`."""
 
-    def __init__(self, cfg: SystemConfig, workdir: str, device="cuda"):
+    def __init__(self, cfg: SystemConfig, workdir: str, device="cuda",
+                 report_to=("jsonl",), render_in_step: bool = False,
+                 scene_bank: Optional[Mapping[str, np.ndarray]] = None,
+                 bank_augment: bool = True):
+        if render_in_step and scene_bank is not None:
+            raise ValueError("scene_bank renders in the step already; "
+                             "give render_in_step or scene_bank")
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype = resolve_compute_dtype(
             cfg.train, self.device)
+        self.render_in_step = render_in_step
         os.makedirs(workdir, exist_ok=True)
         seed = cfg.train.seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -97,12 +119,26 @@ class Trainer:
         self.ctx = self._blank_ctx()
         self.schedule = DiffusionSchedule.create(cfg.diffusion, self.device)
         self.state: TrainState = create_train_state(cfg, self.dual)
-        self._step = make_train_step(cfg, self.dual, self.vae, self.schedule,
-                                     compute_dtype)
+        args = (cfg, self.dual, self.vae, self.schedule, compute_dtype)
+        self._step = make_train_step(*args)
+        self.bank = None
+        if scene_bank is not None:
+            from unirenderer_tpu_torch.data.scene_bank import bank_to_device
+            self.bank = bank_to_device(scene_bank, self.device)
+            self._bank_step = make_bank_train_step(*args,
+                                                   augment=bank_augment)
+        elif render_in_step:
+            self._render_step = make_render_train_step(*args)
         # every step's random numbers, drawn on the host
         self.generator = torch.Generator().manual_seed(seed)
         self.metrics_path = os.path.join(workdir, "metrics.jsonl")
         self.ckpt_dir = os.path.join(workdir, "checkpoints")
+        self.ckpt = CheckpointManager(self.ckpt_dir,
+                                      cfg.train.checkpoints_total_limit)
+        self.logger = MetricLogger(self.metrics_path, report_to=report_to)
+        self.timer = PhaseTimer(self.device)
+        self.guard = AnomalyGuard()
+        self._saver = AsyncSaver(self.ckpt)
 
     # ------------------------------------------------------------------
     def _blank_ctx(self) -> torch.Tensor:
@@ -112,7 +148,8 @@ class Trainer:
 
     def install_dual(self, flat: Mapping[str, np.ndarray]) -> int:
         """Warm-start the dual-stream masters from flax params (a params
-        npz); the optimizer starts fresh."""
+        npz); the optimizer starts fresh.  A checkpoint in the workdir
+        still wins (`train` resumes from it)."""
         with torch.no_grad():
             n = load_flax(self.dual, flat)
         self.state = create_train_state(self.cfg, self.dual)
@@ -131,52 +168,118 @@ class Trainer:
         return n
 
     # ------------------------------------------------------------------
-    def step(self, batch: Mapping[str, torch.Tensor],
-             is_inverse: Optional[bool] = None) -> Dict[str, torch.Tensor]:
-        """One train step on a batch of the 8 maps (moved to the device);
-        `is_inverse` forces the branch of the dual timestep draw."""
-        batch = {k: batch[k].to(self.device) for k in BATCH_KEYS}
-        b, h, w, _ = batch["image"].shape
+    def _latent_hw(self, resolution: int):
         ds = self.cfg.vae.downscale
-        draws = draw(self.generator, b, (h // ds, w // ds),
-                     self.cfg.diffusion.num_train_timesteps, is_inverse)
+        return resolution // ds, resolution // ds
+
+    def step(self, batch: Optional[Mapping] = None,
+             is_inverse: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """One train step; `is_inverse` forces the branch of the dual
+        timestep draw.  `batch`: the 8 maps (moved to the device); with
+        `render_in_step` a stacked scene; with a scene bank nothing (the
+        step draws its scenes)."""
+        T = self.cfg.diffusion.num_train_timesteps
+        if self.bank is not None:
+            from unirenderer_tpu_torch.data.scene_bank import (
+                bank_sizes, draw_scenes,
+            )
+            b = self.cfg.train.batch_size_per_device
+            scene_draws = draw_scenes(self.generator, bank_sizes(self.bank),
+                                      b, self.cfg.data)
+            draws = draw(self.generator, b,
+                         self._latent_hw(self.cfg.data.resolution), T,
+                         is_inverse)
+            return self._bank_step(self.state, self.ctx, self.bank,
+                                   scene_draws, draws.to(self.device))
+        if self.render_in_step:
+            scene = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in batch.items()}
+            b = scene["v_pos"].shape[0]
+            draws = draw(self.generator, b,
+                         self._latent_hw(self.cfg.data.resolution), T,
+                         is_inverse)
+            return self._render_step(self.state, self.ctx, scene,
+                                     draws.to(self.device))
+        batch = {k: torch.as_tensor(batch[k]).to(self.device)
+                 for k in BATCH_KEYS}
+        b, h, w, _ = batch["image"].shape
+        draws = draw(self.generator, b, self._latent_hw(h), T, is_inverse)
         return self._step(self.state, self.ctx, batch,
                           draws.to(self.device))
 
-    def save(self) -> str:
-        """The dual-stream params as a JAX-format npz, named by step."""
-        path = os.path.join(self.ckpt_dir,
-                            f"params_{self.state.step:08d}.npz")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        save_params_npz(path, flax_from_module(self.dual), self.state.step)
-        return path
+    # ------------------------------------------------------------------
+    def resume_state(self) -> Dict:
+        """Everything of the training state but the params, as a
+        checkpoint's `state.pt` holds it."""
+        s = self.state
+        return dict(optimizer=s.optimizer.state_dict(), step=s.step,
+                    updates=s.updates, mini_step=s.mini_step, acc=s.acc,
+                    generator=self.generator.get_state())
 
-    def train(self, batch_iterator: Iterator[Mapping[str, torch.Tensor]],
-              max_steps: Optional[int] = None) -> TrainState:
-        """Steps over the iterator's batches until `max_steps` (default
-        TrainConfig.max_steps) updates have been taken."""
+    def save(self, blocking: bool = True) -> str:
+        """Checkpoint the current step (`checkpoint-<step>`: the params
+        npz, JAX format, f32, and the rest of the state); returns its
+        directory."""
+        self._saver.save(self.state.step, self.dual, self.state.params,
+                         self.resume_state(), blocking=blocking)
+        return self.ckpt.step_dir(self.state.step)
+
+    def maybe_resume(self) -> int:
+        """Restore the newest readable checkpoint newer than the current
+        step (params, optimizer state, counters, accumulator, generator
+        state); returns the step the state is at."""
+        self._saver.join()
+        latest = self.ckpt.latest_step()
+        if latest is None or latest <= self.state.step:
+            return self.state.step
+        restored = self.ckpt.restore()
+        if restored is None:
+            return self.state.step
+        params, st = restored
+        with torch.no_grad():
+            load_flax(self.dual, params)
+        s = self.state
+        s.optimizer.load_state_dict(st["optimizer"])
+        s.step, s.updates, s.mini_step = st["step"], st["updates"], \
+            st["mini_step"]
+        s.acc = (None if st["acc"] is None
+                 else [a.to(self.device) for a in st["acc"]])
+        self.generator.set_state(st["generator"])
+        return s.step
+
+    def train(self, batch_iterator: Optional[Iterator[Mapping]] = None,
+              max_steps: Optional[int] = None,
+              validation_fn: Optional[Callable[[TrainState, int], object]]
+              = None) -> TrainState:
+        """Steps until `max_steps` (default TrainConfig.max_steps) steps
+        have been taken, over the iterator's batches (a scene bank needs
+        none), after resuming from the newest checkpoint."""
         cfg = self.cfg.train
         max_steps = max_steps or cfg.max_steps
-        start = self.state.step
-        with open(self.metrics_path, "a", buffering=1) as log:
-            for batch in batch_iterator:
-                if self.state.step >= max_steps:
-                    break
+        start = self.maybe_resume()
+        if self.bank is not None:
+            batch_iterator = itertools.repeat(None)
+        for batch in batch_iterator:
+            if self.state.step >= max_steps:
+                break
+            with self.timer.phase("step"):
                 metrics = self.step(batch)
-                step = self.state.step
-                loss = float(metrics["loss"])
-                if not math.isfinite(loss):
-                    raise FloatingPointError(
-                        f"non-finite loss {loss} at step {step}")
-                if step % 10 == 0 or step == start + 1:
-                    rec = {"step": step, "time": time.time()}
-                    rec.update((k, float(v)) for k, v in metrics.items())
-                    log.write(json.dumps(rec) + "\n")
-                if step % cfg.checkpoint_every == 0:
-                    self.save()
+            step = self.state.step
+            if step % LOG_EVERY == 0 or step == start + 1:
+                with self.timer.phase("log", sync=True):
+                    self.guard.check(self.logger.log(step, metrics), step)
+            if step % cfg.checkpoint_every == 0:
+                with self.timer.phase("checkpoint"):
+                    self.save(blocking=False)
+            if validation_fn is not None and \
+                    step % cfg.validation_every == 0:
+                with self.timer.phase("validation", sync=True):
+                    validation_fn(self.state, step)
         if self.state.step > start and \
                 self.state.step % cfg.checkpoint_every != 0:
-            self.save()
+            self.save(blocking=True)
+        self._saver.join()
+        self.timer.dump(os.path.join(self.workdir, "phases.jsonl"))
         return self.state
 
 
@@ -194,20 +297,27 @@ def synthetic_batches(cfg: SystemConfig, batch: int, seed: int = 0,
 
 
 def rendered_batches(dataset, batch: int, resolution: int, ssaa: int,
-                     device="cuda", seed: int = 0
+                     device="cuda", seed: int = 0, prefetch: int = 0
                      ) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of the render collate (`data/objaverse.collate_render`, K4
-    on the card) over a shuffled pass of the dataset, repeated; the collate
-    runs without a gradient, in the loop (no prefetch thread)."""
+    on the card) over a shuffled pass of the dataset, repeated, without a
+    gradient.  `prefetch` > 0 runs the collate that many batches ahead in
+    a thread (on a side CUDA stream on the card:
+    `data/input_pipeline.device_prefetch`); the batches are the same."""
+    from unirenderer_tpu_torch.data.input_pipeline import device_prefetch
     from unirenderer_tpu_torch.data.objaverse import collate_render
-    rng = np.random.default_rng(seed)
-    order = rng.permutation(len(dataset))
-    i = 0
-    while True:
-        items = [dataset[int(order[(i + j) % len(order)])]
+    order = np.random.default_rng(seed).permutation(len(dataset))
+
+    def make_batch(i):
+        items = [dataset[int(order[(i * batch + j) % len(order)])]
                  for j in range(batch)]
-        i += batch
+        return collate_render(items, resolution=resolution, ssaa=ssaa,
+                              device=device)
+
+    if prefetch > 0:
+        yield from device_prefetch(make_batch, device, depth=prefetch)
+        return
+    for i in itertools.count():
         with torch.no_grad():     # leave before the yield: grad mode is
-            maps = collate_render(items, resolution=resolution,  # per thread
-                                  ssaa=ssaa, device=device)
+            maps = make_batch(i)  # per thread
         yield maps
