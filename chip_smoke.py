@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,11] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,13] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9, 10, 11, 12: phase 8 reuses phase 3's flagship weights, freed
+8, 7, 9, 10, 11, 12, 13: phase 8 reuses phase 3's flagship weights, freed
 before phase 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
@@ -132,6 +132,28 @@ before phase 7):
      noise, 2 bank steps over the held-out set with a checkpoint, a fresh
      Trainer resuming bit-equal (params, optimizer state, step, generator)
      and one more step from each within 1e-3 relative
+ 13  the apps and the rest of eval: the stdlib HTTP server on 127.0.0.1 in
+     a thread over a flagship `AppBackend` (random bf16 weights from the
+     seed, 20 steps, ensemble 5): the page; a decompose of a 512^2 PNG of
+     phase 6's first scene collated alone, with a box prompt around its
+     mask, answered with 6 uint8 512^2 maps and the same bits on a
+     repeat; a relight under a seeded latlong PNG; a request with no image
+     answered with a JSON 500 naming it (any other status of a request
+     fails the phase); each served request's K1/K2 launches equal to
+     `pipelines.KernelCalls`'s, every call checked in phase 2 (its new
+     shapes run there after every earlier case), its cold and warm wall,
+     the device time of the same backend call (profiler) and its peak
+     memory; `python -m unirenderer_tpu_torch.eval.run_inverse` as a
+     subprocess at flagship size with --box and a .hdr from `write_hdr`:
+     exit 0 and 8 folders (7 maps and relit); `http_app.build_backend(
+     "medium", ...)` answering one decompose (K2 at head dims 24, 48, 96);
+     phase 6's first mesh and texture written as an OBJ + MTL + PNG, the
+     native scanner's arrays bit-equal to the numpy parser's, collated
+     from two cameras with `Material.from_mtl`'s texture: K4 at that shape
+     bit-equal to its plain version, one launch in the collate; LPIPS and
+     FID (seeded random backbones) of phase 7's 32 held-out forward images
+     on the card in f32 (TF32 off) within 1e-3 relative of the CPU's
+     (regenerated when phase 7 did not run); Pillow's version
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -186,7 +208,7 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13"
 MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
 REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
 REUSE_ROUNDS = 3                 # warm requests of each, in turns
@@ -202,6 +224,8 @@ GN_HEADLINE = ((2, 64, 64, 320), 32, 1e-5, True)   # K1's headline call
 TRAIN_VARIANT_REL = 1e-3         # render-in-step, two-phase, resume: loss
 VALIDATION_PSNR_ABS = 1e-3       # validation vs the harness's maps, dB
 VAE_BATCH = 1                    # scenes (x 8 maps) per VAE step, phase 12
+APP_ENSEMBLE = 5                 # the served decompose's ensemble, phase 13
+PERCEPTUAL_REL = 1e-3            # LPIPS / FID, card f32 against the CPU
 
 
 def log(msg: str) -> None:
@@ -495,7 +519,8 @@ def case_ok(r) -> bool:
 
 def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
                   bwd_cases, later_route_cases, later_gn_cases,
-                  modes_gn_cases=(), modes_attn_cases=(), vae_gn_cases=()):
+                  modes_gn_cases=(), modes_attn_cases=(), vae_gn_cases=(),
+                  apps_gn_cases=(), apps_attn_cases=()):
     """`gn_cases`, `later_gn_cases`, `modes_gn_cases`: (call signature,
     parameter type) of K1; `attn_cases`, `modes_attn_cases`: (q shape, k
     shape) of K2; `route_cases`, `later_route_cases`: (kernel name, case,
@@ -504,7 +529,7 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
     `later_` and then the `modes_` cases (phase 11's shapes), added after
     the others, run last, so that each earlier case keeps the inputs it
     had before they were added; the `vae_` cases (phase 12's VAE training
-    shapes) after those."""
+    shapes) after those, then the `apps_` cases (phase 13's)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def gn_job(c, p):
@@ -526,7 +551,10 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
             + [gn_job(c, p) for c, p in modes_gn_cases]
             + [route_job("flash_attention", c, {})
                for c in modes_attn_cases]
-            + [gn_job(c, p) for c, p in vae_gn_cases])
+            + [gn_job(c, p) for c, p in vae_gn_cases]
+            + [gn_job(c, p) for c, p in apps_gn_cases]
+            + [route_job("flash_attention", c, {})
+               for c in apps_attn_cases])
     # what the timer reads for the least device work: a one-element fill
     one = torch.empty(1, device="cuda")
     floor_ms = timer(lambda: one.fill_(1.0))
@@ -1272,16 +1300,21 @@ def phase_render_chain(torch, cfg, pipe, checked, rast_checked):
 
 
 def phase_held_out(torch, ensembles=(1, 5)):
+    """-> (the scores, the first leg's held-out (gt, forward) images, which
+    phase 13 scores with LPIPS and FID)."""
     from unirenderer_tpu_torch.eval.quality import (
         held_out_scores, small_trained_pipeline,
     )
     t = time.perf_counter()
     pipe = small_trained_pipeline("cuda", torch.bfloat16)
-    out = {}
+    out, images = {}, None
     for e in ensembles:
         r = held_out_scores(pipe, n=32, num_steps=20, noise_seeds=(1000,),
                             inverse=True, ensemble=e,
-                            log=lambda msg: log(f"  {msg}"))
+                            log=lambda msg: log(f"  {msg}"),
+                            keep_images=images is None)
+        if images is None:
+            images = r["runs"][0].pop("images")
         out[f"ensemble_{e}"] = r
         value, inv, ref = (r["psnr_forward_render"], r["inverse"],
                            INVERSE_REFERENCE[e])
@@ -1311,7 +1344,7 @@ def phase_held_out(torch, ensembles=(1, 5)):
               f"held-out MR MAE {inv['metal_rough_mae']:.4f} (ensemble {e}) "
               f"is more than {MR_MAE_MARGIN} above {ref['mr_mae']:.3f}")
     log(f"  phase {time.perf_counter() - t:.1f} s")
-    return out
+    return out, images
 
 
 # ---------------------------------------------------------------------------
@@ -1944,16 +1977,42 @@ def unpadded(mesh):
     return out
 
 
+def rast_check_once(torch, timer, name, pos, tri, res):
+    """K4 against its plain version on one input, which runs once, for the
+    check; kernel time from CUDA events over one call after an L2 flush.
+    Fails unless bit-equal.  -> (the case, its call signature)."""
+    from unirenderer_tpu_torch.ops.rasterize import (
+        match_stats, rasterize, rasterize_reference, within_rule,
+    )
+    got = rasterize(pos, tri, res, res)
+    torch.cuda.synchronize()
+    want = rasterize_reference(pos, tri, res, res)
+    stats = match_stats(got, want)
+    del got, want
+    ms = timer(lambda: rasterize(pos, tri, res, res))
+    bound_ms, bound_by, _ = rast_bound(torch, pos, tri, res, res, False)
+    views = tri.shape[0]
+    r = dict(kernel="rasterize", case=name,
+             shape=[views, pos.shape[1], tri.shape[1], res, res],
+             peel=False, ok=within_rule(stats) and stats["bit_equal"],
+             **stats, max_abs_err=max(stats["z_err"], stats["uv_err"]),
+             ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None)
+    log(f"  K4 at the {name} shape {r['shape']}: bit-equal "
+        f"{int(stats['bit_equal'])}, within the rule "
+        f"{int(within_rule(stats))}, {ms:.4f} ms (bound {bound_ms:.4f},"
+        f" {bound_by})")
+    check(r["ok"], f"K4 disagrees with its plain version at {r['shape']}")
+    return r, ((views, pos.shape[1], 4), (views, tri.shape[1], 3), res, res,
+               False)
+
+
 def bank_rast_cases(torch, bank, cfg):
     """K4 against its plain version at the raster shapes of the bank steps
     (2 views: the train step; VAE_BATCH: the VAE step), on clip positions
-    of scenes drawn from the bank; kernel time from CUDA events over one
-    call after an L2 flush (the plain version runs once, for the check)."""
+    of scenes drawn from the bank (`rast_check_once`)."""
     from unirenderer_tpu_torch.data.scene_bank import (
         bank_sizes, draw_scenes, scenes_from_draws,
-    )
-    from unirenderer_tpu_torch.ops.rasterize import (
-        match_stats, rasterize, rasterize_reference, within_rule,
     )
     from unirenderer_tpu_torch.ops.transform import xfm_points
     d = cfg.data
@@ -1965,28 +2024,10 @@ def bank_rast_cases(torch, bank, cfg):
         scene = scenes_from_draws(bank, draw_scenes(
             gen, bank_sizes(bank), views, d), d)
         pos = xfm_points(scene["v_pos"], scene["mvps"]).contiguous()
-        tri = scene["t_idx"].contiguous()
-        got = rasterize(pos, tri, res, res)
-        torch.cuda.synchronize()
-        want = rasterize_reference(pos, tri, res, res)
-        stats = match_stats(got, want)
-        ms = timer(lambda: rasterize(pos, tri, res, res))
-        bound_ms, bound_by, _ = rast_bound(torch, pos, tri, res, res, False)
-        r = dict(kernel="rasterize", case=f"bank {views} views",
-                 shape=[views, pos.shape[1], tri.shape[1], res, res],
-                 peel=False, ok=within_rule(stats) and stats["bit_equal"],
-                 **stats, max_abs_err=max(stats["z_err"], stats["uv_err"]),
-                 ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=None)
-        log(f"  K4 at the bank's shape {r['shape']}: bit-equal "
-            f"{int(stats['bit_equal'])}, within the rule "
-            f"{int(within_rule(stats))}, {ms:.4f} ms (bound {bound_ms:.4f},"
-            f" {bound_by})")
-        check(r["ok"], f"K4 disagrees with its plain version at {r['shape']}")
+        r, sig = rast_check_once(torch, timer, f"bank {views} views", pos,
+                                 scene["t_idx"].contiguous(), res)
         out.append(r)
-        signatures.add(((views, pos.shape[1], 4), (views, tri.shape[1], 3),
-                        res, res, False))
-        del got, want
+        signatures.add(sig)
     return out, signatures
 
 
@@ -2375,6 +2416,386 @@ def small_resume_and_validation(torch, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the apps and the rest of eval
+# ---------------------------------------------------------------------------
+
+
+def apps_calls(cfg):
+    """name -> `pipelines.KernelCalls` of each of phase 13's requests: the
+    app's decompose (flagship, 1 photo x APP_ENSEMBLE) and relight (1 x
+    ensemble 1), `run_inverse` (the decompose, then relight's forward pass
+    from it) and the medium() decompose."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.pipelines import KernelCalls
+    res, steps = cfg.vae.sample_size, cfg.sampler.num_steps
+    med = config.medium()
+    return {
+        "decompose": KernelCalls(cfg, res).real_image2mask_3mod_albedo(
+            1, steps, APP_ENSEMBLE),
+        "relight": KernelCalls(cfg, res).relight(1, steps),
+        "run_inverse": KernelCalls(cfg, res).real_image2mask_3mod_albedo(
+            1, steps, APP_ENSEMBLE).mask2image_3mod_albedo(
+                1, steps, material_image_encode=True),
+        "medium_decompose": KernelCalls(
+            med, med.vae.sample_size).real_image2mask_3mod_albedo(
+                1, steps, APP_ENSEMBLE),
+    }
+
+
+def _png_b64(arr_u8):
+    import base64
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr_u8).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _png_decode(b64s):
+    import base64
+    import io
+    import numpy as np
+    from PIL import Image
+    with Image.open(io.BytesIO(base64.b64decode(b64s))) as img:
+        return np.asarray(img)
+
+
+def app_photo(torch, cfg):
+    """Phase 6's first scene collated alone at 512^2 -> (its image as a
+    uint8 photo, a box prompt around its mask with a 16-pixel margin, the
+    scene's items)."""
+    import numpy as np
+    from unirenderer_tpu_torch.data.objaverse import collate_render
+    d = cfg.data
+    items, _ = flagship_items(torch, cfg, np.random.default_rng(SEED))
+    maps = collate_render(items[:1], resolution=d.resolution, ssaa=d.ssaa,
+                          device="cuda")
+    photo = ((maps["image"][0].clamp(-1, 1) + 1) * 127.5).round().to(
+        torch.uint8).cpu().numpy()
+    ys, xs = np.nonzero(maps["mask"][0, ..., 0].cpu().numpy() > 0)
+    r = d.resolution - 1
+    box = (max(int(xs.min()) - 16, 0), max(int(ys.min()) - 16, 0),
+           min(int(xs.max()) + 16, r), min(int(ys.max()) + 16, r))
+    return photo, ",".join(map(str, box)), items
+
+
+def serve_app(torch, cfg, pipe, checked, calls, photo, box):
+    """The HTTP server in a thread over a flagship AppBackend: the page,
+    decompose (twice: the same bits), relight, and a request with no image
+    (a JSON 500); each served request's K1/K2 launches from the config,
+    its warm wall, the device time of the same backend call (profiler)
+    and its peak memory."""
+    import http.client
+    import threading
+    from http.server import HTTPServer
+    import numpy as np
+    from unirenderer_tpu_torch.eval.app import MAP_NAMES, AppBackend
+    from unirenderer_tpu_torch.eval.http_app import make_handler
+    backend = AppBackend(pipe, steps=cfg.sampler.num_steps,
+                         ensemble=APP_ENSEMBLE)
+    srv = HTTPServer(("127.0.0.1", 0), make_handler(backend))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    host = f"127.0.0.1:{srv.server_port}"
+
+    def request(method, path, payload=None):
+        conn = http.client.HTTPConnection(host, timeout=600)
+        body = None if payload is None else json.dumps(payload)
+        conn.request(method, path, body,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    def served(path, payload):
+        status, data = request("POST", path, payload)
+        check(status == 200, f"{path}: HTTP {status}: {data[:300]!r}")
+        return json.loads(data)
+
+    out, res = {}, cfg.vae.sample_size
+    rng = np.random.default_rng(SEED + 13)
+    smooth = rng.standard_normal((4, 8, 3))
+    env = np.kron(np.exp(smooth), np.ones((16, 16, 1)))      # 64 x 128
+    env_u8 = (np.clip(env / env.max(), 0, 1) ** (1 / 2.2) * 255).astype(
+        np.uint8)
+    body = {"image": _png_b64(photo), "mask": None, "box": box,
+            "point": None}
+    try:
+        status, page = request("GET", "/")
+        check(status == 200 and b"Decompose" in page, "GET / failed")
+        for name, path, payload, direct in (
+                ("decompose", "/api/decompose", body,
+                 lambda: backend.decompose(photo, None, box)),
+                ("relight", "/api/relight",
+                 dict(body, env=_png_b64(env_u8)),
+                 lambda: backend.relight(photo, None, box, env_u8))):
+            first, cold, peak, got = counted_run(
+                torch, lambda: served(path, payload),
+                calls[name].launches, checked, f"app {name}")
+            t = time.perf_counter()
+            again = served(path, payload)
+            warm = time.perf_counter() - t
+            names = MAP_NAMES if name == "decompose" else ("relit",)
+            check(sorted(first["maps"]) == sorted(names),
+                  f"app {name}: maps {sorted(first['maps'])}")
+            for k, png in first["maps"].items():
+                arr = _png_decode(png)
+                check(arr.shape == (res, res, 3) and arr.dtype == np.uint8,
+                      f"app {name}: {k} is {arr.shape} {arr.dtype}")
+            check(again == first, f"app {name}: a repeat gave other bits")
+            busy = device_busy_ms(torch, direct)
+            out[name] = dict(cold_wall_s=cold, warm_wall_s=warm,
+                             device_busy_ms=busy, peak_bytes=peak,
+                             launches=got)
+            log(f"  app {name} over HTTP (flagship, {cfg.sampler.num_steps}"
+                f" steps, ensemble "
+                f"{APP_ENSEMBLE if name == 'decompose' else 1}): cold "
+                f"{cold:.3f} s, warm {warm:.3f} s, device busy {busy:.1f} "
+                f"ms (the backend call, profiler), peak "
+                f"{peak / 2**30:.2f} GiB, launches {got}; a repeat gave "
+                f"the same bits")
+        status, data = request("POST", "/api/decompose", {"image": None})
+        err = json.loads(data).get("error", "")
+        check(status == 500 and "no input image" in err,
+              f"a request with no image: HTTP {status} {err!r}")
+        log(f"  a request with no image: HTTP 500 {err!r}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    return out
+
+
+def run_inverse_cli(torch, cfg, calls, photo, box, tmp):
+    """`python -m unirenderer_tpu_torch.eval.run_inverse` on the card at
+    flagship size with --box and a .hdr written by `write_hdr`: exit 0 and
+    every folder written at the VAE's resolution."""
+    import numpy as np
+    from PIL import Image
+    from unirenderer_tpu_torch.data.hdr import write_hdr
+    from unirenderer_tpu_torch.eval.run_inverse import MAP_FOLDERS
+    img_path = os.path.join(tmp, "photo.png")
+    Image.fromarray(photo).save(img_path)
+    env_path = os.path.join(tmp, "env.hdr")
+    rng = np.random.default_rng(SEED + 14)
+    write_hdr(env_path, np.exp(rng.standard_normal((64, 128, 3))).astype(
+        np.float32))
+    out_dir = os.path.join(tmp, "run_inverse")
+    cmd = [sys.executable, "-m", "unirenderer_tpu_torch.eval.run_inverse",
+           "--image", img_path, "--out", out_dir, "--box", box,
+           "--relight-env", env_path, "--steps",
+           str(cfg.sampler.num_steps), "--ensemble", str(APP_ENSEMBLE)]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"run_inverse exited {proc.returncode}: "
+          f"{proc.stderr[-1500:]}")
+    shapes = {}
+    for name in MAP_FOLDERS + ("relit",):
+        path = os.path.join(out_dir, name, "0.png")
+        check(os.path.exists(path), f"run_inverse wrote no {name}/0.png")
+        with Image.open(path) as img:
+            shapes[name] = img.size + (len(img.getbands()),)
+        res = cfg.vae.sample_size
+        check(shapes[name] == (res, res, 3),
+              f"run_inverse {name}/0.png is {shapes[name]}")
+    log(f"  run_inverse (flagship, box {box}, relight under a .hdr): exit "
+        f"0 in {wall:.1f} s (process start, weights, kernels loaded from "
+        f"the build, a decompose x {APP_ENSEMBLE} and a relight), "
+        f"{len(shapes)} folders at {cfg.vae.sample_size}^2; its own "
+        f"launches per the config: "
+        f"{calls['run_inverse'].launches}; stdout: "
+        f"{proc.stdout.strip().splitlines()[0]!r}")
+    return dict(wall_s=wall, folders=sorted(shapes))
+
+
+def medium_request(torch, cfg, checked, calls, photo, box):
+    """`http_app.build_backend("medium", ...)` on the card: one decompose
+    at the flagship's step count, its launches from the config."""
+    import numpy as np
+    from unirenderer_tpu_torch.eval.http_app import build_backend
+    t = time.perf_counter()
+    backend = build_backend("medium", None, None, cfg.sampler.num_steps,
+                            APP_ENSEMBLE, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    size = backend.size
+    # the prompt in the upload's pixels: the backend scales it itself
+    maps, cold, peak, got = counted_run(
+        torch, lambda: backend.decompose(photo, None, box),
+        calls["medium_decompose"].launches, checked, "medium decompose")
+    t = time.perf_counter()
+    again = backend.decompose(photo, None, box)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    for k, v in maps.items():
+        check(v.shape == (size, size, 3) and v.dtype == np.uint8,
+              f"medium {k}: {v.shape} {v.dtype}")
+        check(np.array_equal(v, again[k]), f"medium {k}: repeat differs")
+    n_params = sum(p.numel() for p in backend.pipe.dual.parameters())
+    log(f"  medium() decompose ({n_params / 1e6:.1f}M dual-stream params, "
+        f"{size}^2, ensemble {APP_ENSEMBLE}): "
+        f"built in {build_s:.1f} s, cold {cold:.3f} s, warm {warm:.3f} s, "
+        f"peak {peak / 2**30:.2f} GiB, launches {got}")
+    del backend
+    torch.cuda.empty_cache()
+    return dict(cold_wall_s=cold, warm_wall_s=warm, peak_bytes=peak,
+                launches=got, dual_params=n_params)
+
+
+def obj_collate(torch, cfg, items, tmp):
+    """Phase 6's first mesh and texture written as an OBJ + MTL + PNG,
+    loaded by the native scanner and by the numpy parser (bit-equal), its
+    material by `Material.from_mtl`, collated from two cameras: K4 at that
+    shape bit-equal to its plain version, one launch in the collate."""
+    import numpy as np
+    from PIL import Image
+    from unirenderer_tpu_torch.data.obj_io import build_native, load_obj
+    from unirenderer_tpu_torch.data.objaverse import (
+        collate_render, pad_mesh, stack_scene,
+    )
+    from unirenderer_tpu_torch.ops.transform import xfm_points
+    from unirenderer_tpu_torch.render.material import Material
+    d = cfg.data
+    mesh = unpadded(items[0]["mesh"])
+    obj = os.path.join(tmp, "scene.obj")
+    with open(obj, "w") as f:
+        f.write("mtllib scene.mtl\n")
+        for key, tag in (("v_pos", "v"), ("v_tex", "vt"), ("v_nrm", "vn")):
+            f.writelines(f"{tag} " + " ".join(f"{x:.9g}" for x in row)
+                         + "\n" for row in mesh[key].tolist())
+        f.write("usemtl scene\n")
+        f.writelines("f " + " ".join(f"{i}/{i}/{i}" for i in row) + "\n"
+                     for row in (mesh["t_idx"] + 1).tolist())
+    kd = np.clip(items[0]["mesh"]["kd_tex"], 0, 1)
+    Image.fromarray((kd * 255).round().astype(np.uint8)).save(
+        os.path.join(tmp, "kd.png"))
+    with open(os.path.join(tmp, "scene.mtl"), "w") as f:
+        f.write("newmtl scene\nKd 0.8 0.8 0.8\nmap_Kd kd.png\n")
+    t = time.perf_counter()
+    build_native()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    native = load_obj(obj, use_native=True)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = load_obj(obj, use_native=False)
+    plain_s = time.perf_counter() - t
+    for k in ("v_pos", "t_idx", "v_nrm", "v_tex", "v_tng", "kd"):
+        check(native[k].dtype == plain[k].dtype
+              and np.array_equal(native[k], plain[k]),
+              f"load_obj: the native scanner's {k} differs from numpy's")
+    material = Material.from_mtl(os.path.join(tmp, "scene.mtl"),
+                                 device="cuda")
+    check(material.has_texture and tuple(material.kd.shape) == (
+        d.texture_res, d.texture_res, 3), "Material.from_mtl: no texture")
+    m = pad_mesh({k: native[k] for k in ("v_pos", "t_idx", "v_nrm",
+                                         "v_tex", "v_tng")},
+                 d.v_pad, d.t_pad)
+    m["kd_tex"] = material.kd.cpu().numpy()
+    batch = [dict(items[i], mesh=m) for i in range(2)]   # two cameras
+    scene = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in stack_scene(batch).items()}
+    pos = xfm_points(scene["v_pos"], scene["mvps"]).contiguous()
+    case, sig = rast_check_once(torch, Timer(torch), "OBJ collate", pos,
+                                scene["t_idx"].contiguous(),
+                                d.resolution * d.ssaa)
+    reset_counters()
+    maps = collate_render(batch, resolution=d.resolution, ssaa=d.ssaa,
+                          device="cuda")
+    torch.cuda.synchronize()
+    launches, seen = read_counters()
+    check(launches["rasterize"] == 1,
+          f"the OBJ collate launched K4 {launches['rasterize']} times")
+    check(seen["rasterize"] == {sig}, f"K4 saw {seen['rasterize']}")
+    for k in ("image", "albedo", "normal", "mask"):
+        check(bool(torch.isfinite(maps[k]).all()), f"OBJ collate {k}")
+    coverage = (maps["mask"][..., 0] > 0).float().mean().item()
+    check(0.02 < coverage < 0.98, f"OBJ collate coverage {coverage}")
+    log(f"  OBJ (V {len(native['v_pos'])}, T {len(native['t_idx'])}) + MTL "
+        f"+ {d.texture_res}^2 map_Kd: scanner built by g++ in {build_s:.2f}"
+        f" s (0: built before), load_obj {native_s * 1e3:.1f} ms with the "
+        f"native scanner, {plain_s * 1e3:.1f} ms with the numpy parser "
+        f"(unification and tangents in both), the same arrays bit for bit; "
+        f"the collate launched K4 once, mask coverage {coverage:.3f}")
+    return dict(build_s=build_s, native_s=native_s, plain_s=plain_s,
+                vertices=len(native["v_pos"]),
+                triangles=len(native["t_idx"]), coverage=coverage), case
+
+
+def score_perceptual(torch, images):
+    """LPIPS and FID (seeded random backbones) of the held-out forward
+    images on the card in f32 (TF32 off) against the same on the CPU."""
+    from unirenderer_tpu_torch.eval.quality import perceptual_scores
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t = time.perf_counter()
+        card = perceptual_scores(images, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    t = time.perf_counter()
+    cpu = perceptual_scores(images, "cpu")
+    cpu_s = time.perf_counter() - t
+    n = sum(len(g) for g, _ in images)
+    out = dict(card=card, cpu=cpu, card_s=card_s, cpu_s=cpu_s, n=n)
+    for k in ("lpips_forward_vs_gt", "fid_forward_vs_gt"):
+        rel = abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+        out[f"{k}_rel"] = rel
+        log(f"  {k} over {n} held-out images: card {card[k]:.6g}, CPU "
+            f"{cpu[k]:.6g}, relative difference {rel:.3g} (limit "
+            f"{PERCEPTUAL_REL:g})")
+        check(rel <= PERCEPTUAL_REL, f"{k}: card and CPU differ by {rel:.3g}")
+    check(not card["lpips_calibrated"] and not card["fid_calibrated"],
+          "random backbones reported as calibrated")
+    log(f"  scoring time: card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    return out
+
+
+def phase_apps(torch, cfg, checked, held_out_images):
+    import gc
+    import tempfile
+    import PIL
+    log(f"  Pillow {PIL.__version__}")
+    calls = apps_calls(cfg)
+    result = dict(pillow=PIL.__version__)
+    photo, box, items = app_photo(torch, cfg)
+    with tempfile.TemporaryDirectory(prefix="apps_") as tmp:
+        pipe, _ = flagship_pipeline(torch, cfg)
+        result["http"] = serve_app(torch, cfg, pipe, checked, calls, photo,
+                                   box)
+        del pipe
+        gc.collect()          # the server's handler class holds the backend
+        torch.cuda.empty_cache()
+        log(f"  after the server: {torch.cuda.memory_allocated() / 2**30:.2f}"
+            f" GiB allocated on the card")
+        result["run_inverse"] = run_inverse_cli(torch, cfg, calls, photo,
+                                                box, tmp)
+        result["medium"] = medium_request(torch, cfg, checked, calls, photo,
+                                          box)
+        result["obj"], rast = obj_collate(torch, cfg, items, tmp)
+    if held_out_images is None:
+        from unirenderer_tpu_torch.eval.quality import (
+            held_out_scores, small_trained_pipeline,
+        )
+        small = small_trained_pipeline("cuda", torch.bfloat16)
+        r = held_out_scores(small, n=32, num_steps=20, noise_seeds=(1000,),
+                            keep_images=True)
+        held_out_images = r["runs"][0].pop("images")
+        del small
+        torch.cuda.empty_cache()
+    result["perceptual"] = score_perceptual(torch, held_out_images)
+    return result, rast
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -2512,6 +2933,13 @@ def phase2_cases(cfg):
     # phase 12's VAE training step (K1 only: the mid-block attention is
     # plain PyTorch), after every earlier case
     vae_gn = vae_train_calls(cfg).signatures[0] - gn_cases - modes_gn
+    # phase 13's requests (the app at batch 1 x ensemble 5, the medium()
+    # preset's 128^2 shapes: K2 at head dims 24, 48, 96), after those
+    apps_gn, apps_attn = set(), set()
+    for calls in apps_calls(cfg).values():
+        gn, attn = calls.signatures
+        apps_gn |= gn - gn_cases - modes_gn - vae_gn
+        apps_attn |= attn - attn_cases - modes_attn
     ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                  ((1, 33, 31, 1920), 32, 1e-6, False)]
     ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -2529,8 +2957,10 @@ def phase2_cases(cfg):
         modes_gn=[(c, "bfloat16") for c in sorted(modes_gn)],
         modes_attn=sorted(modes_attn),
         vae_gn=[(c, "bfloat16") for c in sorted(vae_gn)],
-        checked={"groupnorm_silu": gn_cases | modes_gn | vae_gn,
-                 "flash_attention": attn_cases | modes_attn,
+        apps_gn=[(c, "bfloat16") for c in sorted(apps_gn)],
+        apps_attn=sorted(apps_attn),
+        checked={"groupnorm_silu": gn_cases | modes_gn | vae_gn | apps_gn,
+                 "flash_attention": attn_cases | modes_attn | apps_attn,
                  "flash_attention_backward": set(train_attn),
                  "splash_attention": set(routed),
                  "attn_kernel": set(routed)})
@@ -2611,13 +3041,16 @@ def main(argv=None) -> int:
                 f"backward cases + ragged (tolerance 2^-6 * max|ref|), "
                 f"{len(cases['modes_gn'])} GroupNorm and "
                 f"{len(cases['modes_attn'])} attention cases of phase 11, "
-                f"{len(cases['vae_gn'])} GroupNorm cases of phase 12")
+                f"{len(cases['vae_gn'])} GroupNorm cases of phase 12, "
+                f"{len(cases['apps_gn'])} GroupNorm and "
+                f"{len(cases['apps_attn'])} attention cases of phase 13")
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, cases["gn_jobs"], cases["attn_jobs"],
                 cases["route_cases"], cases["bwd_jobs"],
                 cases["later_routes"], cases["later_gn"], cases["modes_gn"],
-                cases["modes_attn"], cases["vae_gn"])
+                cases["modes_attn"], cases["vae_gn"], cases["apps_gn"],
+                cases["apps_attn"])
             del timer
             fresh = k2_fresh_draws(torch)
             log(f"  K2 err / tol at (2,4096,8,40) on {len(fresh)} fresh "
@@ -2636,6 +3069,7 @@ def main(argv=None) -> int:
             log("phase 2 done")
         launches = {}
         pipe = None
+        held_out_images = None
         if phases & {3, 6, 8}:
             pipe, n_params = flagship_pipeline(torch, cfg)
         # ---- 3: main path
@@ -2690,7 +3124,7 @@ def main(argv=None) -> int:
         if 7 in phases:
             log("phase 7 held-out harness: trained small() weights, forward "
                 "and inverse legs")
-            record["held_out"] = phase_held_out(torch)
+            record["held_out"], held_out_images = phase_held_out(torch)
             log("phase 7 done")
         # ---- 9: a small() training step, card against CPU
         if 9 in phases:
@@ -2726,6 +3160,16 @@ def main(argv=None) -> int:
             results += rest["rasterize_cases"]
             record["rest_of_training"] = rest
             log("phase 12 done")
+        # ---- 13: the apps and the rest of eval
+        if 13 in phases:
+            log("phase 13 the apps and the rest of eval: the HTTP app "
+                "(flagship decompose and relight), run_inverse, the medium() "
+                "preset, an OBJ through the collate, LPIPS and FID")
+            t = time.perf_counter()
+            record["apps"], rast = phase_apps(torch, cfg, checked,
+                                              held_out_images)
+            results.append(rast)
+            log(f"phase 13 done in {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

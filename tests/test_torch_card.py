@@ -795,3 +795,69 @@ def test_prefetched_collate_on_a_side_stream_matches(card, tmp_path):
     for x, y in zip(a_loss, b_loss):
         assert math.isfinite(x) and abs(x - y) <= 1e-3 * abs(x), (a_loss,
                                                                   b_loss)
+
+
+def test_small_app_decompose_on_card_is_finite_and_repeatable(card):
+    """A small() `AppBackend` (the trained r05 weights, bf16) decomposes a
+    64^2 photo on the card with a box prompt: 6 uint8 maps at 64^2, the
+    same bits on a repeat (each request draws from a generator seeded 0),
+    K1/K2 launches as the config counts them."""
+    from unirenderer_tpu_torch.eval.app import MAP_NAMES, AppBackend
+    from unirenderer_tpu_torch.eval.quality import small_trained_pipeline
+    from unirenderer_tpu_torch.pipelines import KernelCalls
+    pipe = small_trained_pipeline("cuda", torch.bfloat16)
+    backend = AppBackend(pipe, steps=3, ensemble=2)
+    rng = np.random.default_rng(8)
+    photo = np.full((80, 72, 3), 255, np.uint8)
+    photo[12:68, 10:62] = rng.integers(0, 200, (56, 52, 3))
+    before = (fused_groupnorm_silu.launches, flash_attention.launches)
+    maps = backend.decompose(photo, None, "8,10,64,70")
+    calls = KernelCalls(pipe.cfg, 64).real_image2mask_3mod_albedo(
+        1, 3, 2).launches
+    assert (fused_groupnorm_silu.launches - before[0],
+            flash_attention.launches - before[1]) == (
+        calls["groupnorm_silu"], calls["flash_attention"])
+    again = backend.decompose(photo, None, "8,10,64,70")
+    assert sorted(maps) == sorted(MAP_NAMES)
+    for k, v in maps.items():
+        assert v.shape == (64, 64, 3) and v.dtype == np.uint8, k
+        assert np.array_equal(v, again[k]), k
+
+
+def test_native_obj_scanner_on_card_machine(tmp_path):
+    """The g++ build of native/objio.cpp on this machine gives the numpy
+    parser's arrays bit for bit, for a sphere written with 9 significant
+    digits (needs no card: the scanner runs on the host)."""
+    from unirenderer_tpu_torch.data.obj_io import load_obj
+    from unirenderer_tpu_torch.render.mesh import make_sphere
+    s = make_sphere(24)
+    path = tmp_path / "s.obj"
+    with open(path, "w") as f:
+        for key, tag in (("v_pos", "v"), ("v_tex", "vt"), ("v_nrm", "vn")):
+            for row in getattr(s, key).tolist():
+                f.write(f"{tag} " + " ".join(f"{x:.9g}" for x in row) + "\n")
+        for row in (s.t_pos_idx + 1).tolist():
+            f.write("f " + " ".join(f"{i}/{i}/{i}" for i in row) + "\n")
+    native = load_obj(str(path), use_native=True)
+    plain = load_obj(str(path), use_native=False)
+    for k in ("v_pos", "t_idx", "v_nrm", "v_tex", "v_tng", "kd"):
+        assert native[k].dtype == plain[k].dtype
+        assert np.array_equal(native[k], plain[k]), k
+
+
+def test_lpips_and_inception_on_card_match_cpu(card):
+    """The seeded random LPIPS and InceptionV3 in f32 (TF32 off) on the
+    card against the same modules on the CPU: distances and pool3
+    features within 1e-3 relative (of max|CPU|)."""
+    from unirenderer_tpu_torch.eval import inception, lpips
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    a, b = rng.uniform(-1, 1, (2, 3, 64, 64, 3)).astype(np.float32)
+    want = lpips.make_lpips_fn(device="cpu")[0](a, b)
+    got = lpips.make_lpips_fn(device=card)[0](a, b)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    x = rng.uniform(0, 1, (3, 64, 64, 3)).astype(np.float32)
+    want = inception.make_feature_fn(device="cpu")(x)
+    got = inception.make_feature_fn(device=card)(x)
+    assert got.shape == (3, 2048)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()

@@ -1,10 +1,11 @@
-"""Typed configuration: the port's own copy of `unirenderer_tpu.core.config`.
+"""Typed configuration: the port's own copy of
+`unirenderer_tpu/core/config.py`.
 
 Only the parts the ported paths read are carried over: the model
 geometries (UNet, VAE, CLIP text), the diffusion schedule, the sampler
 recipe, the renderer and the data settings, with the same defaults and
-the same `flagship()`, `legacy16()`, `legacy12()`, `small()` and `tiny()`
-presets, and the training settings (`TrainConfig`).
+the same `flagship()`, `legacy16()`, `legacy12()`, `small()`, `medium()`
+and `tiny()` presets, and the training settings (`TrainConfig`).
 """
 
 from __future__ import annotations
@@ -230,6 +231,42 @@ def small() -> SystemConfig:
                         v_pad=4096, t_pad=8192, random_camera=True),
         train=TrainConfig(batch_size_per_device=8, learning_rate=1e-4,
                           checkpoint_every=1000),
+    )
+
+
+def medium() -> SystemConfig:
+    """128^2 images, 32^2 latents: flagship topology at ~3.2x small()'s
+    parameter count (328M dual-stream parameters).  Attention at S 1024 /
+    D 24, S 256 / D 48 and S 64 / D 96.  Nothing trained at this size is
+    in the repo."""
+    return SystemConfig(
+        unet=UNetConfig(
+            block_out_channels=(192, 384, 768),
+            layers_per_block=2,
+            down_block_attn=(True, True, False),
+            num_heads=8,
+            cross_attention_dim=512,
+            norm_num_groups=32,
+            sample_size=32,
+            remat=True,
+        ),
+        vae=VAEConfig(
+            block_out_channels=(64, 128, 256),
+            layers_per_block=2,
+            norm_num_groups=16,
+            sample_size=128,
+        ),
+        text=TextEncoderConfig(
+            vocab_size=512, hidden_size=512, num_layers=4, num_heads=8,
+            max_length=16, intermediate_size=1024,
+        ),
+        sampler=SamplerConfig(ensemble=1),
+        render=RenderConfig(resolution=128, env_res=64, env_min_res=8,
+                            max_mip_level=3, raster_chunk=512),
+        data=DataConfig(resolution=128, texture_res=128,
+                        v_pad=8192, t_pad=16384, random_camera=True),
+        train=TrainConfig(batch_size_per_device=8, learning_rate=1e-4,
+                          checkpoint_every=1000, validation_every=1000),
     )
 
 

@@ -6,7 +6,9 @@ also inverse-render the rendered image and score the maps it gives back
 
     python -m unirenderer_tpu_torch.eval.quality [--device cuda]
         [--dtype bfloat16] [--n 32] [--steps 20] [--noise-seeds 1000]
-        [--inverse] [--ensemble 1]
+        [--inverse] [--ensemble 1] [--lpips] [--fid]
+        [--lpips-weights VGG16_FEATURES.pt LPIPS_VGG.pt]
+        [--inception-weights INCEPTION_V3.pt]
 
 writes the seed-99 held-out set of `tools/make_data_r05.sh` (32 meshes, 8
 envs; ~2 MB) to a temporary directory with `data/synthetic.py`, loads the
@@ -14,7 +16,10 @@ trained small() weights (`artifacts/r05/dual_small.npz`,
 `artifacts/r04/vae_small.npz`) and the text encoder the JAX harness scores
 with (`artifacts/r05/text_small.npz`, written by
 `tools/export_text_params_r05.py`), and prints one JSON line with the
-scores per noise seed.
+scores per noise seed.  `--lpips` / `--fid` add LPIPS and FID of the
+forward images against the rendered ones (`perceptual_scores`, f32 on the
+device); without weight files the backbones are seeded random ones and
+the report says `lpips_calibrated` / `fid_calibrated` false.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from unirenderer_tpu_torch.data.objaverse import (
     ObjaverseDataTest, collate_render,
 )
+from unirenderer_tpu_torch.eval import metrics as M
 from unirenderer_tpu_torch.eval.metrics import NormalMetric, masked_mean, psnr
 
 BATCH = 4
@@ -76,14 +82,16 @@ def _numpy(x) -> np.ndarray:
 
 def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
                  n: int = 32, num_steps: int = 20, noise_seed: int = 1000,
-                 log=None) -> Dict:
+                 log=None, keep_images: bool = False) -> Dict:
     """Mean over batches of PSNR((fwd + 1) / 2, (gt + 1) / 2) of `n`
     held-out items (ObjaverseDataTest with seed 1234, batches of 4 at the
     VAE's resolution), each forward-rendered from its rendered maps with
     `material_image_encode=True`.  Batch i draws its noise from a
     generator seeded `noise_seed + i` on the pipeline's device; the
-    forward image is scored unclipped."""
-    scores = []
+    forward image is scored unclipped.  `keep_images`: the result's
+    "images" holds per batch (gt, clip(fwd)) in [0, 1], numpy, as
+    `perceptual_scores` takes them."""
+    scores, images = [], []
     for bi, batch in enumerate(_held_out_batches(pipe, mesh_paths,
                                                  env_dirs, n)):
         gen = torch.Generator(device=pipe.device).manual_seed(
@@ -94,13 +102,52 @@ def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
             env=batch["env"], mask=batch["mask"],
             metallic=batch["metallic"], roughness=batch["roughness"],
             generator=gen, num_steps=num_steps, material_image_encode=True)
-        scores.append(psnr((_numpy(fwd) + 1) / 2,
-                           (_numpy(batch["image"]) + 1) / 2))
+        gt01 = (_numpy(batch["image"]) + 1) / 2
+        scores.append(psnr((_numpy(fwd) + 1) / 2, gt01))
+        if keep_images:
+            images.append((gt01, (np.clip(_numpy(fwd), -1, 1) + 1) / 2))
         if log is not None:
             log(f"batch {bi}: psnr_fwd={scores[-1]:.2f}")
-    return dict(psnr_forward_render=float(np.mean(scores)),
-                per_batch=scores, n_objects=n, steps=num_steps,
-                noise_seed=noise_seed)
+    out = dict(psnr_forward_render=float(np.mean(scores)),
+               per_batch=scores, n_objects=n, steps=num_steps,
+               noise_seed=noise_seed)
+    if keep_images:
+        out["images"] = images
+    return out
+
+
+def perceptual_scores(images, device="cuda", lpips: bool = True,
+                      fid: bool = True, lpips_weights=None,
+                      inception_weights=None) -> Dict:
+    """LPIPS and FID of forward images against ground truth (the
+    `--lpips` / `--fid` legs of `tools/eval_quality.py`), f32 on
+    `device`.  `images`: per batch (gt, fwd) (B, H, W, 3) in [0, 1].
+    LPIPS is the mean over images of LPIPS(gt * 2 - 1, fwd * 2 - 1); FID
+    (only with 8 images or more) is over all of them, 4 a call through
+    InceptionV3.  Without weight files (`lpips_weights`: the VGG16
+    features and the lpips heads; `inception_weights`) the backbones are
+    the seeded random ones and `*_calibrated` is false."""
+    from unirenderer_tpu_torch.eval import inception as inc
+    from unirenderer_tpu_torch.eval import lpips as lp
+    out = {}
+    gts = [g for g, _ in images]
+    fwds = [f for _, f in images]
+    if lpips:
+        model = (lp.lpips_from_files(*lpips_weights, device=device)
+                 if lpips_weights else lp.random_lpips(device=device))
+        fn, _ = lp.make_lpips_fn(model)
+        out["lpips_forward_vs_gt"] = float(np.concatenate(
+            [fn(g * 2 - 1, f * 2 - 1) for g, f in images]).mean())
+        out["lpips_calibrated"] = bool(lpips_weights)
+    if fid and sum(len(g) for g in gts) >= 8:
+        model = (inc.inception_from_file(inception_weights, device=device)
+                 if inception_weights else inc.random_inception(
+                     device=device))
+        feat = inc.make_feature_fn(model, batch=4)
+        out["fid_forward_vs_gt"] = M.fid(np.concatenate(gts),
+                                         np.concatenate(fwds), feat)
+        out["fid_calibrated"] = bool(inception_weights)
+    return out
 
 
 def inverse_scores(pipe, mesh_paths: List[str], env_dirs: List[str],
@@ -164,10 +211,11 @@ def small_trained_pipeline(device="cuda", dtype=torch.bfloat16,
 def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
                     noise_seeds: Sequence[int] = (1000,),
                     inverse: bool = False, ensemble: int = 1,
-                    log=None) -> Dict:
+                    log=None, keep_images: bool = False) -> Dict:
     """Write the held-out set to a temporary directory (env prefilter on the
     pipeline's device), then `forward_psnr` once per noise seed, and with
-    `inverse` `inverse_scores` once per noise seed."""
+    `inverse` `inverse_scores` once per noise seed.  `keep_images`: each
+    forward run keeps its images (`forward_psnr`)."""
     from unirenderer_tpu_torch.data.synthetic import write_dataset
     with tempfile.TemporaryDirectory(prefix="held_out_") as root:
         t = time.perf_counter()
@@ -179,7 +227,8 @@ def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
         for seed in noise_seeds:
             t = time.perf_counter()
             r = forward_psnr(pipe, meshes, envs, n=n, num_steps=num_steps,
-                             noise_seed=seed, log=log)
+                             noise_seed=seed, log=log,
+                             keep_images=keep_images)
             r["seconds"] = time.perf_counter() - t
             runs.append(r)
             if inverse:
@@ -218,6 +267,18 @@ def main(argv=None):
                     help="also score the inverse leg")
     ap.add_argument("--ensemble", type=int, default=None,
                     help="inverse ensemble members (small(): 1)")
+    ap.add_argument("--lpips", action="store_true",
+                    help="also LPIPS(forward, rendered), per noise seed")
+    ap.add_argument("--fid", action="store_true",
+                    help="also FID(forward, rendered), per noise seed "
+                         "(needs n >= 8)")
+    ap.add_argument("--lpips-weights", nargs=2,
+                    metavar=("VGG16_FEATURES.pt", "LPIPS_VGG.pt"),
+                    help="torchvision VGG16 features and lpips heads "
+                         "state_dicts; a random backbone otherwise")
+    ap.add_argument("--inception-weights",
+                    help="torchvision inception_v3 state_dict; a random "
+                         "backbone otherwise")
     args = ap.parse_args(argv)
     on_cpu = torch.device(args.device).type == "cpu"
     args.dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
@@ -228,7 +289,15 @@ def main(argv=None):
     out = held_out_scores(pipe, args.n, args.steps,
                           [int(s) for s in args.noise_seeds.split(",")],
                           inverse=args.inverse, ensemble=ensemble,
-                          log=lambda msg: print(msg, flush=True))
+                          log=lambda msg: print(msg, flush=True),
+                          keep_images=args.lpips or args.fid)
+    for run in out["runs"]:
+        images = run.pop("images", None)
+        if images is not None:
+            run.update(perceptual_scores(
+                images, args.device, lpips=args.lpips, fid=args.fid,
+                lpips_weights=args.lpips_weights,
+                inception_weights=args.inception_weights))
     out.update(device=args.device, dtype=args.dtype, torch=torch.__version__)
     print(json.dumps(out), flush=True)
 
