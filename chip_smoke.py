@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,13] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,14] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9, 10, 11, 12, 13: phase 8 reuses phase 3's flagship weights, freed
-before phase 7):
+8, 7, 9-14: phase 8 reuses phase 3's flagship weights, freed before phase
+7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
      and the -Xptxas -v report (registers, shared memory, spills, and any
@@ -154,6 +154,34 @@ before phase 7):
      FID (seeded random backbones) of phase 7's 32 held-out forward images
      on the card in f32 (TF32 off) within 1e-3 relative of the CPU's
      (regenerated when phase 7 did not run); Pillow's version
+ 14  `parallel/mesh.py`, the SD weight port and introspection: (a) an NCCL
+     group of one rank (TCP store on 127.0.0.1): 4 flagship train steps
+     (batch 2, bf16, remat, AdamW) unwrapped, then under `make_sharded_train_step` (DP), DP with FSDP
+     and `make_tp_train_step` on a (1, 1) mesh with FSDP (a model axis of
+     one rank wraps no linear: FSDP under the TP plan), from the same
+     weights, batches and draws: each step's loss and gradient norm within
+     1e-3 relative of the unwrapped step's (a forward and an inverse step,
+     each from the initial weights), K1 / K2 / K2 bwd launches equal to
+     `train_step_launches` at every step, cold and warm wall (2 more
+     rounds) and peak memory; (b) two
+     processes on the one card through gloo (NCCL will not put two ranks
+     on one device), small() r05 weights: a DP step over a global batch of
+     4 against one process's step on it, loss within 1e-3 relative and
+     gradient cosine >= 0.999; (c) random SD-v1.4-shaped diffusers state
+     dicts for the UNet, VAE and CLIP text encoder (keys from the port's
+     path maps over its flagship modules) written as fp16 .bin files,
+     `port_sd_checkpoint` on the card with fast_init on and off (seconds
+     of each): every mapped tensor equal to the file's, the inflated convs
+     the tiled kernels x 0.142, the zero convs zero, both inits the same
+     bits; then `python -m unirenderer_tpu_torch.train --sd-* --synthetic
+     --steps 2` (flagship, Adafactor: a smaller checkpoint) as a
+     subprocess: exit 0, a checkpoint, finite losses; the files deleted;
+     (d) one small() UNet-stream forward (r05 weights, seeded input, the
+     attribute encoder's f32 residuals) captured by
+     `models/introspect.capture_activations` as bf16 on the card, bf16 on
+     the CPU and f32 on the CPU: the same scopes, finite values; the 10
+     worst scopes of card-bf16 against CPU-bf16 and of CPU-bf16 against
+     CPU-f32, and the first scope in forward order past 2^-7 relative
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -208,7 +236,7 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14"
 MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
 REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
 REUSE_ROUNDS = 3                 # warm requests of each, in turns
@@ -2837,6 +2865,467 @@ KERNELS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: DP, FSDP and TP on torch.distributed; the SD-v1.4 weight port;
+# activation introspection
+# ---------------------------------------------------------------------------
+
+DIST_REL = 1e-3                  # wrapped train step vs unwrapped: loss, norm
+DIST_WARM_ROUNDS = 2             # timed forward + inverse steps after them
+GLOO_COS = 0.999                 # 2 gloo ranks vs one process: grad cosine
+GLOO_TIMEOUT_S = 300             # both gloo processes (they take ~25-40 s)
+INTROSPECT_REL = 2.0 ** -7       # the first scope past this, forward order
+SD_CLI_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def smooth_maps(torch, F, gen, batch, res):
+    """The 8 training maps, smooth fields in [-1, 1] on the card."""
+    from unirenderer_tpu_torch.train.train_step import BATCH_KEYS
+    out = {}
+    for k in BATCH_KEYS:
+        z = torch.randn((batch, 3, 16, 16), generator=gen, device="cuda")
+        z = F.interpolate(z, size=(res, res), mode="bilinear",
+                          align_corners=False)
+        out[k] = torch.tanh(z).permute(0, 2, 3, 1).contiguous()
+    return out
+
+
+def distributed_steps(torch, F, cfg, checked):
+    """(a): one process, an NCCL group of one rank; the unwrapped flagship
+    step and its DP, FSDP and TP+FSDP wrappings on the same weights,
+    batches and draws, forward / inverse / forward / inverse."""
+    import torch.distributed as dist
+    from unirenderer_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
+    from unirenderer_tpu_torch.models.vae import AutoencoderKL
+    from unirenderer_tpu_torch.parallel import mesh as pm
+    from unirenderer_tpu_torch.train.train_step import (
+        create_train_state, draw, make_train_step, train_step_launches,
+    )
+    from unirenderer_tpu_torch.train.trainer import _build
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh1, mesh2 = pm.make_mesh(), pm.make_mesh_2d(1, 1)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        with torch.device("meta"):
+            vae = AutoencoderKL(cfg.vae)
+        vae = _build(vae, "cuda", torch.bfloat16, gen).eval()
+        vae.requires_grad_(False)
+        ctx = torch.randn((1, cfg.text.max_length,
+                           cfg.unet.cross_attention_dim), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        schedule = DiffusionSchedule.create(cfg.diffusion, "cuda")
+        res, b = cfg.vae.sample_size, 2
+        h = res // cfg.vae.downscale
+        # two compared steps, each from the initial weights, then warm
+        # steps (timed, from the weights the steps reach)
+        kinds = (False, True) + (False, True) * DIST_WARM_ROUNDS
+        batches = [smooth_maps(torch, F, gen, b, res) for _ in kinds]
+        counted = ("groupnorm_silu", "flash_attention",
+                   "flash_attention_backward")
+        out, ref, ref_warm = {}, None, None
+        for variant in ("unwrapped", "dp", "fsdp", "tp_fsdp"):
+            t = time.perf_counter()
+            with torch.device("meta"):
+                dual = DualStreamModel(cfg.unet)
+            dual = _build(dual, "cuda", torch.float32, torch.Generator(
+                device="cuda").manual_seed(SEED)).train()
+            base = make_train_step(cfg, dual, vae, schedule, torch.bfloat16)
+            if variant == "unwrapped":
+                step, state = base, create_train_state(cfg, dual)
+            elif variant in ("dp", "fsdp"):
+                step, state = pm.make_sharded_train_step(
+                    cfg, dual, base, mesh1, fsdp=variant == "fsdp")
+            else:
+                step, state = pm.make_tp_train_step(cfg, dual, base, mesh2,
+                                                    fsdp=True)
+            sh = state.sharding
+            sharded = 0 if sh is None else len(sh.layout)
+            # the initial weights, copied to the host (the peak stays the
+            # step's own)
+            init = {n: p.detach().to("cpu", copy=True) for n, p in (
+                state.params if sh is None
+                else sh.full_params(state.params)).items()}
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for i, inverse in enumerate(kinds):
+                if i < 2:                 # the compared steps: same weights
+                    with torch.no_grad():
+                        if sh is None:
+                            for n, p in state.params.items():
+                                p.copy_(init[n])
+                        else:
+                            sh.load_full_(state.params, init)
+                draws = draw(torch.Generator().manual_seed(SEED + i), b,
+                             (h, h), cfg.diffusion.num_train_timesteps,
+                             inverse).to("cuda")
+                torch.cuda.synchronize()
+                reset_counters()
+                t = time.perf_counter()
+                metrics = step(state, ctx, batches[i], draws)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches, seen = read_counters()
+                train_launch_check(launches, seen, {
+                    k: train_step_launches(cfg, b, inverse)[k]
+                    for k in counted}, checked, f"{variant} step {i + 1}")
+                rows.append(dict(inverse=inverse, wall_s=wall,
+                                 loss=float(metrics["loss"]),
+                                 grad_norm=float(metrics["grad_norm"]),
+                                 launches={k: launches[k] for k in counted}))
+            peak = torch.cuda.max_memory_allocated()
+            if ref is None:
+                ref = rows
+            errs = [max(abs(r["loss"] - q["loss"]) / abs(q["loss"]),
+                        abs(r["grad_norm"] - q["grad_norm"]) / q["grad_norm"])
+                    for r, q in zip(rows[:2], ref[:2])]
+            warm = {kind: min(r["wall_s"] for r in rows[2:]
+                              if r["inverse"] == (kind == "inverse"))
+                    for kind in ("forward", "inverse")}
+            log(f"  {variant}: {sharded} tensors sharded, built in "
+                f"{build_s:.1f} s; from the same weights: forward loss "
+                f"{rows[0]['loss']:.6g}, grad norm {rows[0]['grad_norm']:.6g}"
+                f", inverse loss {rows[1]['loss']:.6g}, grad norm "
+                f"{rows[1]['grad_norm']:.6g}: max rel err vs unwrapped "
+                f"{max(errs):.2e}; cold {rows[0]['wall_s']:.3f} / "
+                f"{rows[1]['wall_s']:.3f} s, warm (best of "
+                f"{DIST_WARM_ROUNDS}) {warm['forward']:.3f} / "
+                f"{warm['inverse']:.3f} s (forward / inverse; unwrapped "
+                f"{ref_warm['forward'] if ref_warm else warm['forward']:.3f}"
+                f" / {ref_warm['inverse'] if ref_warm else warm['inverse']:.3f}"
+                f"); peak {peak / 2**30:.2f} GiB")
+            if ref_warm is None:
+                ref_warm = warm
+            check(all(math.isfinite(r["loss"]) for r in rows),
+                  f"{variant}: a non-finite loss")
+            check(max(errs) <= DIST_REL, f"{variant}: loss or grad norm "
+                  f"{max(errs):.3g} from the unwrapped step's")
+            out[variant] = dict(steps=rows, peak_bytes=peak, sharded=sharded,
+                                build_s=build_s, max_rel_err=max(errs),
+                                warm_forward_s=warm["forward"],
+                                warm_inverse_s=warm["inverse"])
+            del dual, base, step, state, metrics, init
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def gloo_rank(rank: int, port: int, out: str) -> int:
+    """(b), one of two processes on the one card: small() r05 weights,
+    data-parallel over a gloo group, the global batch of 4 split 2 + 2;
+    rank 0 also takes the single-process step's gradients."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.parallel import mesh as pm
+    from unirenderer_tpu_torch.train.compare import (
+        small_weights, smooth_batch, trainer_with,
+    )
+    from unirenderer_tpu_torch.train.train_step import (
+        BATCH_KEYS, draw, make_grad_fn,
+    )
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    cfg = config.small()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer_with(cfg, small_weights(), "cuda", torch.bfloat16, tmp)
+        sh = tr.state.sharding
+        batch = {k: v.cuda() for k, v in smooth_batch(cfg, 4, SEED).items()}
+        h = cfg.vae.sample_size // cfg.vae.downscale
+        grad_fn = make_grad_fn(cfg, tr.dual, tr.vae, tr.schedule,
+                               tr.compute_dtype)
+        for inverse in (False, True):
+            draws = draw(torch.Generator().manual_seed(SEED), 4, (h, h),
+                         cfg.diffusion.num_train_timesteps, inverse)
+            draws = draws.to("cuda")
+            if rank == 0:
+                g1, m1 = grad_fn(tr.state.params, batch, tr.ctx, draws)
+                ref = (torch.cat([g.flatten().double() for g in g1]),
+                       float(m1["loss"]))
+            sl = pm.host_local_batch_slice(4, tr.mesh)
+            local = pm.slice_draws(draws, sl, len(BATCH_KEYS))
+            grads, metrics = grad_fn(
+                sh.compute_params(tr.state.params, tr.compute_dtype),
+                {k: v[sl] for k, v in batch.items()}, tr.ctx, local,
+                sh.contrastive_scale)
+            grads = sh.reduce_grads(grads)
+            loss = float(sh.mean_metrics(metrics)["loss"])
+            # the trainer's sharded step on the same global batch and draws
+            step_loss = float(tr._step(tr.state, tr.ctx, batch,
+                                       draws)["loss"])
+            if rank == 0:
+                flat = torch.cat([g.flatten().double() for g in grads])
+                cos = float(flat @ ref[0] / (flat.norm() * ref[0].norm()))
+                res["inverse" if inverse else "forward"] = dict(
+                    loss=loss, step_loss=step_loss, loss_ref=ref[1],
+                    grad_cos=cos, grad_norm=float(flat.norm()),
+                    grad_norm_ref=float(ref[0].norm()))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_two_ranks(torch):
+    """(b): two processes through gloo on the one card (NCCL will not put
+    two ranks on one device)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gloo.json")
+        port = free_port()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+             str(r), "--gloo-port", str(port), "--gloo-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=GLOO_TIMEOUT_S)[0] for p in procs]
+        finally:                # a rank left waiting on a dead peer
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:"
+                  f"\n{text[-3000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    for branch, r in res.items():
+        rel = abs(r["loss"] - r["loss_ref"]) / abs(r["loss_ref"])
+        step_rel = abs(r["step_loss"] - r["loss_ref"]) / abs(r["loss_ref"])
+        log(f"  2 gloo ranks, small() {branch} step over a global batch of "
+            f"4: loss {r['loss']:.6g} (the step's {r['step_loss']:.6g}) vs "
+            f"one process {r['loss_ref']:.6g} (rel {max(rel, step_rel):.2e},"
+            f" limit {DIST_REL}), gradient cosine {r['grad_cos']:.6f} "
+            f"(>= {GLOO_COS}), norms {r['grad_norm']:.5g} / "
+            f"{r['grad_norm_ref']:.5g}")
+        check(max(rel, step_rel) <= DIST_REL and r["grad_cos"] >= GLOO_COS,
+              f"2 gloo ranks disagree with one process ({branch})")
+    log(f"  2 gloo ranks: {wall:.1f} s for both processes")
+    return dict(branches=res, wall_s=wall)
+
+
+def sd_port(torch, cfg):
+    """(c): random SD-v1.4-shaped diffusers files (fp16 .bin), ported on the
+    card with both inits, then the training CLI's --sd-* path."""
+    import tempfile
+    from unirenderer_tpu_torch.models import surgery
+    from unirenderer_tpu_torch.models.clip_text import CLIPTextEncoder
+    from unirenderer_tpu_torch.models.dual_stream import ImageUNet
+    from unirenderer_tpu_torch.models.vae import AutoencoderKL
+    maps = {"unet": (ImageUNet, cfg.unet, surgery.unet_path_map),
+            "vae": (AutoencoderKL, cfg.vae, surgery.vae_path_map),
+            "text": (CLIPTextEncoder, cfg.text, surgery.clip_path_map)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        paths, sds, nbytes = {}, {}, 0
+        t = time.perf_counter()
+        for part, (cls, sub, path_map) in maps.items():
+            with torch.device("meta"):
+                mod = cls(sub)
+            sd = {path_map(n): (0.05 * torch.randn(
+                p.shape, generator=gen, device="cuda")).half().cpu()
+                for n, p in mod.named_parameters()}
+            paths[part] = os.path.join(tmp, f"{part}.bin")
+            torch.save(sd, paths[part])
+            nbytes += os.path.getsize(paths[part])
+            sds[part] = sd
+        write_s = time.perf_counter() - t
+        log(f"  SD-v1.4-shaped fp16 files: "
+            + ", ".join(f"{k} {len(v)} keys" for k, v in sds.items())
+            + f", {nbytes / 1e9:.2f} GB written in {write_s:.1f} s")
+        ported = {}
+        for fast in (True, False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loaded = {k: surgery.load_torch_state_dict(p)
+                      for k, p in paths.items()}
+            ported[fast] = surgery.port_sd_checkpoint(
+                loaded["unet"], loaded["vae"], loaded["text"], cfg,
+                device="cuda", fast_init=fast)
+            torch.cuda.synchronize()
+            out[f"port_s_fast_init_{fast}"] = time.perf_counter() - t
+            del loaded
+        dual, vae, text = ported[True]
+        mismatched = []
+        for part, mod in (("unet", dual.unet), ("vae", vae),
+                          ("text", text)):
+            path_map = maps[part][2]
+            for n, p in mod.named_parameters():
+                want = sds[part][path_map(n)].to("cuda", torch.float32)
+                if not torch.equal(p, want):
+                    mismatched.append(f"{part}.{n}")
+        check(not mismatched, f"ported tensors differ from the files: "
+              f"{mismatched[:3]}")
+        u = sds["unet"]
+        w_in = u["conv_in.weight"].to("cuda", torch.float32)
+        w_out = u["conv_out.weight"].to("cuda", torch.float32)
+        b_out = u["conv_out.bias"].to("cuda", torch.float32)
+        check(torch.equal(dual.controlnet.conv_in.weight,
+                          w_in.repeat(1, 7, 1, 1) * 0.142)
+              and torch.equal(dual.controldec.conv_out.weight,
+                              w_out.repeat(7, 1, 1, 1) * 0.142)
+              and torch.equal(dual.controldec.conv_out.bias,
+                              b_out.repeat(7) * 0.142),
+              "the inflated convs are not the tiled kernels x 0.142")
+        zeros = [n for n, p in dual.named_parameters()
+                 if n.split(".")[1].startswith(("zero_", "control_"))]
+        check(zeros and all(not dual.get_parameter(n).any() for n in zeros),
+              "a zero conv is not zero")
+        slow = ported[False]
+        differ = [n for a, b in zip((dual, vae, text), slow)
+                  for (n, p), (_, q) in zip(a.named_parameters(),
+                                            b.named_parameters())
+                  if not torch.equal(p, q)]
+        check(not differ, f"fast_init=True and False differ: {differ[:3]}")
+        n_params = sum(p.numel() for m in (dual, vae, text)
+                       for p in m.parameters())
+        log(f"  port_sd_checkpoint on the card: {n_params / 1e9:.3f} B f32 "
+            f"params, fast_init {out['port_s_fast_init_True']:.1f} s, "
+            f"PyTorch's initialisers {out['port_s_fast_init_False']:.1f} s; "
+            f"every mapped tensor the file's, the inflated convs tiled x "
+            f"0.142, {len(zeros)} zero-conv tensors zero, both inits the "
+            f"same bits")
+        del ported, dual, vae, text, slow
+        torch.cuda.empty_cache()
+        work = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "unirenderer_tpu_torch.train",
+               "--workdir", work, "--synthetic", "--steps",
+               str(SD_CLI_STEPS), "--optimizer", "adafactor",
+               "--sd-unet", paths["unet"], "--sd-vae", paths["vae"],
+               "--sd-text", paths["text"]]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        out["cli_s"] = time.perf_counter() - t
+        check(proc.returncode == 0, f"the --sd-* CLI exited "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        ckpt = os.path.join(work, "checkpoints",
+                            f"checkpoint-{SD_CLI_STEPS}", "params.npz")
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        check(os.path.exists(ckpt) and losses
+              and all(math.isfinite(v) for v in losses),
+              f"the --sd-* CLI: checkpoint {os.path.exists(ckpt)}, losses "
+              f"{losses}")
+        log(f"  python -m unirenderer_tpu_torch.train --sd-* --synthetic "
+            f"--steps {SD_CLI_STEPS} (flagship, Adafactor): exit 0 in "
+            f"{out['cli_s']:.1f} s, logged losses {losses}, "
+            f"{os.path.getsize(ckpt) / 1e9:.2f} GB params npz")
+        out.update(files_bytes=nbytes, write_s=write_s, cli_losses=losses)
+    return out
+
+
+def introspection(torch):
+    """(d): one UNet-stream forward of small() (r05 weights) at a seeded
+    input, bf16 on the card, bf16 and f32 on the CPU, every submodule's
+    output captured."""
+    import numpy as np
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.models.introspect import (
+        capture_activations, diff_activations,
+    )
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    from unirenderer_tpu_torch.train.compare import small_weights
+    cfg = config.small()
+    dual_flat = small_weights()["dual"]
+    g = torch.Generator().manual_seed(SEED + 7)
+    u, s, b = cfg.unet, cfg.unet.sample_size, 2
+    img = torch.randn((b, s, s, u.in_channels), generator=g)
+    attr = torch.randn((b, s, s, u.attr_channels), generator=g)
+    ctx = torch.randn((b, cfg.text.max_length, u.cross_attention_dim),
+                      generator=g)
+    t_img = torch.tensor([999, 400])
+    acts, ctrl = {}, None
+    for name, device, dtype in (("cpu-f32", "cpu", torch.float32),
+                                ("cpu-bf16", "cpu", torch.bfloat16),
+                                ("card-bf16", "cuda", torch.bfloat16)):
+        pipe = UniRendererPipeline.create(
+            cfg, torch.Generator(device=device).manual_seed(SEED),
+            device=device, dtype=dtype)
+        pipe.load_flax(dual=dual_flat)
+        if ctrl is None:        # the attribute encoder's residuals, f32
+            with torch.no_grad():
+                ctrl = pipe.dual.encode_attr(attr, torch.zeros(
+                    b, dtype=torch.long), ctx)
+        down, mid = ctrl
+        t = time.perf_counter()
+        acts[name] = capture_activations(
+            pipe.dual.unet, img.to(device), t_img.to(device),
+            ctx.to(device, dtype), tuple(d.to(device) for d in down),
+            mid.to(device))
+        log(f"  captured {len(acts[name])} scopes ({name}) in "
+            f"{time.perf_counter() - t:.2f} s")
+        del pipe
+    keys = [set(a) for a in acts.values()]
+    check(keys[0] == keys[1] == keys[2], "the captures' scopes differ")
+    check(all(np.isfinite(v).all() for a in acts.values() for v in a.values()
+              if hasattr(v, "shape")), "a captured activation is not finite")
+    out = {}
+    for name, ref, got in (("card_bf16_vs_cpu_bf16", "cpu-bf16",
+                            "card-bf16"),
+                           ("cpu_bf16_vs_cpu_f32", "cpu-f32", "cpu-bf16")):
+        a, bb = acts[ref], acts[got]
+        rows = diff_activations(a, bb, top_k=10)
+        first = None
+        for k in a:                      # forward (completion) order
+            if not hasattr(a[k], "shape"):
+                continue
+            d = float(np.abs(np.asarray(a[k], np.float32)
+                             - np.asarray(bb[k], np.float32)).max())
+            if d > INTROSPECT_REL * max(float(np.abs(a[k]).max()), 1e-8):
+                first = (k, d / max(float(np.abs(a[k]).max()), 1e-8))
+                break
+        log(f"  {name}: 10 worst scopes (max|d|, rel):")
+        for k, d, r in rows:
+            print(f"    {k}: {d:.4g} {r:.4g}", flush=True)
+        log(f"  {name}: first scope past 2^-7 in forward order: "
+            + (f"{first[0]} (rel {first[1]:.4g})" if first else "none"))
+        out[name] = dict(worst=rows, first_past=first,
+                         out_rel=next(r for k, d, r in diff_activations(
+                             a, bb, top_k=len(a)) if k == "__call__#0"))
+        log(f"  {name}: the UNet output's rel diff {out[name]['out_rel']:.4g}")
+    return out
+
+
+def phase_distributed(torch, F, cfg, checked):
+    out = {}
+    for part, fn in (("a", lambda: distributed_steps(torch, F, cfg, checked)),
+                     ("b", lambda: gloo_two_ranks(torch)),
+                     ("c", lambda: sd_port(torch, cfg)),
+                     ("d", lambda: introspection(torch))):
+        t = time.perf_counter()
+        log(f"  ({part}) " + {
+            "a": "NCCL, world 1: the flagship step unwrapped, DP, FSDP, "
+                 "TP+FSDP on a (1, 1) mesh",
+            "b": "2 ranks on the one card through gloo, small()",
+            "c": "the SD-v1.4 weight port at flagship width",
+            "d": "activation introspection, small() r05 weights"}[part])
+        out[part] = fn()
+        out[part + "_s"] = time.perf_counter() - t
+        log(f"  ({part}) done in {out[part + '_s']:.1f} s")
+    return out
+
+
 def kernels_line(results, launches):
     """The result line: per kernel its main-path launches, its worst error
     over all checked cases, and the times and bound of its headline case."""
@@ -2972,7 +3461,13 @@ def main(argv=None) -> int:
                     help="directory for chip_smoke.json (every case)")
     ap.add_argument("--phases", default=ALL_PHASES)
     ap.add_argument("--profile", action="store_true")
+    # one of phase 14 (b)'s two gloo processes (started by the script)
+    ap.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.gloo_rank is not None:
+        return gloo_rank(args.gloo_rank, args.gloo_port, args.gloo_out)
     phases = {int(p) for p in args.phases.split(",")}
 
     import torch
@@ -3170,6 +3665,14 @@ def main(argv=None) -> int:
                                               held_out_images)
             results.append(rast)
             log(f"phase 13 done in {time.perf_counter() - t:.1f} s")
+        # ---- 14: DP / FSDP / TP, the SD weight port, introspection
+        if 14 in phases:
+            log("phase 14 parallel/mesh.py on the card (NCCL, world 1; 2 "
+                "gloo ranks), the SD-v1.4 weight port, introspection")
+            t = time.perf_counter()
+            record["distributed"] = phase_distributed(torch, F, cfg,
+                                                      checked)
+            log(f"phase 14 done in {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

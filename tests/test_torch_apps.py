@@ -48,6 +48,10 @@ from unirenderer_tpu_torch.pipelines import UniRendererPipeline
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 2
 
+from torch_port_helpers import ONE_THREAD_ENV, use_one_thread  # noqa: E402,E501
+
+use_one_thread()
+
 
 @pytest.fixture(scope="module")
 def backend():
@@ -195,7 +199,7 @@ def test_run_inverse_cli_writes_every_folder(tmp_path):
            "--device", "cpu", "--steps", "2", "--ensemble", "2",
            "--box", "4,4,36,36", "--relight-env", str(env)]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
+                          env=dict(os.environ, **ONE_THREAD_ENV), timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     res = config.tiny().vae.sample_size
     for name in MAP_FOLDERS + ("relit",):

@@ -44,6 +44,10 @@ from unirenderer_tpu_torch.ops.flash_attention import (
 )
 from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _arrays(seed, *shapes):
     rng = np.random.default_rng(seed)

@@ -28,6 +28,10 @@ from unirenderer_tpu_torch.pipelines import (
     UniRendererPipeline, forward_self_attention_calls, kernel_cases,
 )
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _qkv(seed, q_shape, k_shape=None, dtype=np.float32):
     rng = np.random.default_rng(seed)

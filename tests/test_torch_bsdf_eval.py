@@ -48,6 +48,10 @@ from unirenderer_tpu_torch.ops import image_loss as til
 REL = 1e-5
 NET_REL = 1e-4
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _nrm(x):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)

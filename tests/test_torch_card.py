@@ -59,8 +59,12 @@ from unirenderer_tpu_torch.ops.splash_attention import (
 )
 from unirenderer_tpu_torch.pipelines import UniRendererPipeline
 
+from torch_port_helpers import use_one_thread
+
 REL = 2.0 ** -7
 pytestmark = pytest.mark.gpu
+if not torch.cuda.is_available():
+    use_one_thread()      # on the card the CPU references keep every core
 
 
 @pytest.fixture

@@ -64,6 +64,10 @@ newmtl blue
 Kd 0.1 0.2 0.9
 """
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture()
 def obj_file(tmp_path):

@@ -10,6 +10,7 @@ package's imports.
     every module of it, imported in a fresh interpreter.
 """
 
+import os
 import pkgutil
 import subprocess
 import sys
@@ -20,7 +21,9 @@ import pytest
 import torch
 
 import unirenderer_tpu_torch
-from tests.torch_port_helpers import assert_rel_close
+from tests.torch_port_helpers import (
+    ONE_THREAD_ENV, assert_rel_close, use_one_thread,
+)
 from unirenderer_tpu.core import config as jcfg
 from unirenderer_tpu.diffusion import samplers as js
 from unirenderer_tpu.diffusion.schedule import (
@@ -33,6 +36,8 @@ from unirenderer_tpu_torch.diffusion.schedule import (
 )
 
 REL = 1e-4
+
+use_one_thread()
 
 
 @pytest.fixture(scope="module")
@@ -110,5 +115,6 @@ def test_the_port_imports_no_jax():
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300)
+                         text=True, env=dict(os.environ, **ONE_THREAD_ENV),
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

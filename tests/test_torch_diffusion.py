@@ -29,6 +29,10 @@ from tests.torch_port_helpers import assert_rel_close
 JSCH = JSchedule.create(JDiffusionConfig())
 TSCH = DiffusionSchedule.create(DiffusionConfig())
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def test_schedule_matches_jax():
     assert_rel_close(TSCH.alphas_cumprod, np.asarray(JSCH.alphas_cumprod),

@@ -37,6 +37,10 @@ from unirenderer_tpu_torch.ops.groupnorm import (
 GN_CASES = [((2, 8, 8, 320), 32, 1e-5, True),
             ((2, 8, 8, 128), 32, 1e-6, False)]
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _gn_inputs(shape, seed):
     rng = np.random.default_rng(seed)

@@ -43,6 +43,10 @@ JT = jcfg.tiny()
 OUT_KEYS = ("normal", "albedo", "spec_light", "diff_light", "env",
             "metallic", "roughness", "material_latents")
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _inputs(seed, *shapes):
     rng = np.random.default_rng(seed)

@@ -40,6 +40,10 @@ LATENT = 4
 STEPS = 3
 TOL = 1e-3
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(scope="module")
 def pipes():

@@ -38,6 +38,10 @@ REL = 1e-4
 F32 = jnp.float32
 JT, TT = jcfg.tiny(), tcfg.tiny()
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _inputs(seed, *shapes, scale=1.0):
     rng = np.random.default_rng(seed)

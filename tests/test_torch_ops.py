@@ -27,6 +27,10 @@ from unirenderer_tpu_torch.ops.groupnorm import (
     fused_groupnorm_silu, groupnorm_silu_reference,
 )
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 def _gn_inputs(shape, seed):
     rng = np.random.default_rng(seed)
     c = shape[-1]

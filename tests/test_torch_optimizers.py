@@ -49,11 +49,15 @@ from unirenderer_tpu_torch.train.train_step import (
 REL = 1e-5
 UPDATES = 6
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

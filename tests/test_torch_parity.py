@@ -31,6 +31,10 @@ from tests.test_sd_port_e2e import _templates, synthetic_state_dict
 
 CFG = config.tiny()
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 # ---------------------------------------------------------------------------
 # Torch mirror of the diffusers UNet2DConditionModel at tiny geometry

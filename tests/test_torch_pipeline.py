@@ -38,6 +38,10 @@ DUAL_NPZ = "artifacts/r05/dual_small.npz"
 VAE_NPZ = "artifacts/r04/vae_small.npz"
 MAPS = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(scope="module")
 def pipes():

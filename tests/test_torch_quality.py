@@ -38,6 +38,10 @@ from unirenderer_tpu_torch.eval.quality import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def test_text_params_are_the_jax_harness_draw():
     cfg = jcfg.small()

@@ -31,6 +31,10 @@ from unirenderer_tpu_torch.ops.transform import xfm_points
 from unirenderer_tpu_torch.render import camera
 from unirenderer_tpu_torch.render.mesh import make_sphere
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _quad(z=0.5, half=0.5):
     pos = torch.tensor([[-half, -half, z, 1.0], [half, -half, z, 1.0],

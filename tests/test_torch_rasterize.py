@@ -34,6 +34,10 @@ from unirenderer_tpu.render import camera as jax_camera
 from unirenderer_tpu_torch.ops import rasterize as R
 from unirenderer_tpu_torch.render.mesh import make_sphere
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _quad(z=0.5, w=1.0, half=0.5):
     pos = np.asarray([[-half, -half, z, w], [half, -half, z, w],

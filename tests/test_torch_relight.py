@@ -33,6 +33,10 @@ from unirenderer_tpu_torch.render import light as tlight
 LATENT = 4
 ENV_RES, ENV_SAMPLES = 64, 16       # three specular mips down to 16
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(scope="module")
 def pipes():

@@ -45,6 +45,10 @@ from unirenderer_tpu_torch.render.mesh import Mesh, make_sphere
 MAPS = ("image", "mask", "material", "normal", "albedo", "spec_light",
         "diff_light", "env")
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

@@ -27,6 +27,10 @@ from unirenderer_tpu_torch.ops import cubemap as tcm
 from unirenderer_tpu_torch.ops import texture as ttex
 from unirenderer_tpu_torch.ops import transform as txfm
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _t(x):
     return torch.from_numpy(np.array(x, np.float32))

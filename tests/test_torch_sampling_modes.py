@@ -40,6 +40,10 @@ STEPS = 4
 TOL = 1e-3
 MAPS = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(scope="module")
 def pipes():

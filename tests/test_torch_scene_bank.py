@@ -28,11 +28,15 @@ from unirenderer_tpu_torch.data import scene_bank as tsb
 
 ATOL = 1e-6
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

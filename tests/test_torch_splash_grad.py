@@ -28,6 +28,10 @@ from unirenderer_tpu_torch.ops.flash_attention import (
 
 SHAPE = (1, 256, 2, 40)
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def _qkv():
     rng = np.random.default_rng(8)

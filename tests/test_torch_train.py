@@ -54,12 +54,16 @@ from unirenderer_tpu_torch.train.train_step import (
 JT = jcfg.tiny()
 T = JT.diffusion.num_train_timesteps
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     """Few threads: the tiny model's ops are too small to share out."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

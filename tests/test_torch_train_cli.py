@@ -8,28 +8,42 @@
   * the scene-bank path of the training CLI over a directory of meshes
     and envs, with Adafactor, validation every 2 steps and the frozen VAE
     from the VAE run's checkpoints;
-  * the flag exclusions of tools/train.py.
+  * the flag exclusions of tools/train.py;
+  * the training CLI and `parallel/world_steps.py` under torchrun on 2
+    gloo ranks.
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from unirenderer_tpu_torch.core.checkpoint import load_params_npz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 def run(*args):
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", *args, "--device", "cpu"],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def records(path):
@@ -94,3 +108,56 @@ def test_train_cli_flag_exclusions(tmp_path, flags, capsys):
              + flags)
     assert e.value.code == 2
     assert "--" in capsys.readouterr().err
+
+
+def test_train_cli_under_torchrun_two_ranks(tmp_path):
+    """`torchrun --nproc_per_node 2 -m unirenderer_tpu_torch.train --fsdp`
+    on the CPU (gloo): each rank keeps its own pool of its rows under
+    --cache-dir, rank 0 alone logs, validates and checkpoints."""
+    work, cache = tmp_path / "run", tmp_path / "cache"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(_free_port()), "-m", "unirenderer_tpu_torch.train",
+         "--workdir", str(work), "--tiny", "--synthetic", "--fsdp",
+         "--steps", "2", "--cache-batches", "2", "--cache-dir", str(cache),
+         "--validation", "--validation-every", "2", "--checkpoint-every",
+         "2", "--device", "cpu"],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert sorted(os.listdir(cache)) == ["rank0-of-2", "rank1-of-2"]
+    for r in range(2):
+        shard = np.load(cache / f"rank{r}-of-2" / "b00000.npz")
+        assert shard["image"].shape[0] == 2      # its rows of a batch of 4
+    with open(work / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["step"] for r in recs] == [1, 2]   # rank 0's step and PSNRs
+    assert any(k.startswith("psnr_") for k in recs[1])
+    assert sorted(os.listdir(work / "validation")) == ["step-2"]
+    assert os.listdir(work / "checkpoints") == ["checkpoint-2"]
+
+
+def test_world_steps_under_torchrun_two_ranks(tmp_path):
+    """`parallel/world_steps.py` on 2 gloo ranks at tiny(), f32: DP,
+    FSDP, TP and TP+FSDP (1 x 2) each within 1e-5 of one process's loss
+    and of DP's gradient norm (the script's own gate, for bf16 on the
+    card, is 1e-3), its JSON written by rank 0."""
+    out_json = tmp_path / "world2.json"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(_free_port()), "-m", "unirenderer_tpu_torch.parallel.world_steps",
+         "--config", "tiny", "--device", "cpu", "--warm", "0", "--out",
+         str(out_json)],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    with open(out_json) as f:
+        res = json.load(f)
+    assert res["ok"] and res["world"] == 2 and res["global_batch"] == 4
+    assert set(res["variants"]) == {"dp", "fsdp", "tp", "tp_fsdp"}
+    assert res["variants"]["tp"]["tp_linears"] > 0
+    for v in res["variants"].values():
+        assert v["loss_rel_vs_one_process"] <= 1e-5, v
+        assert v["grad_norm_rel_vs_dp"] <= 1e-5, v

@@ -62,12 +62,16 @@ JT = jcfg.tiny()
 LR = 1e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     """Few threads: the tiny model's ops are too small to share out."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -213,7 +217,7 @@ def test_loss_falls_on_a_fixed_batch(jax_step):
 
 
 def test_cli_trains_on_the_cpu(tmp_path):
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "unirenderer_tpu_torch.train", "--workdir",
          str(tmp_path), "--tiny", "--synthetic", "--steps", "3",

@@ -46,11 +46,15 @@ from unirenderer_tpu_torch.train.train_step import (
 from unirenderer_tpu_torch.train import trainer as trainer_module
 from unirenderer_tpu_torch.train.trainer import Trainer
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

@@ -41,11 +41,15 @@ REL = 1e-4
 LR = 1e-3
 KEY_BIAS = "mid_attn/to_k/bias"    # the mid-block attention's key bias
 
+from torch_port_helpers import use_one_thread  # noqa: E402
+
+use_one_thread()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

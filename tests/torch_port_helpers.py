@@ -3,15 +3,32 @@ package: seeded numpy parameters for a flax module (from `jax.eval_shape`
 of its init, so no flax init runs), flattening to `/`-joined paths, a
 JAX tiny() pipeline with seeded weights beside the port loaded with the
 same ones, the training step's models, batch and replayed draws, and the
-relative-error check every parity test states."""
+relative-error check every parity test states, and the suite's one
+torch thread per process (`use_one_thread`)."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-import jax
 import numpy as np
 import torch
+
+try:
+    import jax
+except ImportError:     # the card's machine: tests/test_torch_card.py
+    jax = None
+
+
+def use_one_thread() -> None:
+    """One torch thread in this process: the suite runs 6 xdist workers on
+    an 8-core machine beside JAX's own pools, and torch's default of a
+    thread per core oversubscribes it (a tiny step runs many times slower).
+    Every tests/test_torch_*.py file calls it on import; the subprocesses
+    port tests start get OMP_NUM_THREADS=1 (`ONE_THREAD_ENV`)."""
+    torch.set_num_threads(1)
+
+
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1"}
 
 
 def flax_shapes(module, *args, **kwargs):

@@ -206,8 +206,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--ensemble", type=int, default=5)
     ap.add_argument("--port", type=int, default=7860)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device",
+                    help="default: $UNIRENDER_PLATFORM, else cuda")
     args = ap.parse_args(argv)
+    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    args.device = str(setup_runtime(args.device))
 
     backend = build_backend(args.config, args.ckpt, args.vae_ckpt,
                             args.steps, args.ensemble, args.device)

@@ -256,7 +256,8 @@ def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device",
+                    help="default: $UNIRENDER_PLATFORM, else cuda")
     ap.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
                     help="bfloat16 on the card (the kernels take nothing "
                          "else); float32 by default on the CPU")
@@ -280,6 +281,8 @@ def main(argv=None):
                     help="torchvision inception_v3 state_dict; a random "
                          "backbone otherwise")
     args = ap.parse_args(argv)
+    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    args.device = str(setup_runtime(args.device))
     on_cpu = torch.device(args.device).type == "cpu"
     args.dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
     if args.dtype != "bfloat16" and not on_cpu:

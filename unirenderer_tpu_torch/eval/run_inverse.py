@@ -71,16 +71,18 @@ def main(argv=None):
                     help="HDR latlong (.hdr RGBE or .npy linear float): "
                     "also re-light the object under it and save "
                     "relit/0.png")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device",
+                    help="default: $UNIRENDER_PLATFORM, else cuda")
     args = ap.parse_args(argv)
 
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.core.checkpoint import CheckpointManager
     from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    from unirenderer_tpu_torch.utils.runtime import setup_runtime
 
+    dev = setup_runtime(args.device)
     cfg = config.tiny() if args.tiny else config.flagship()
     size = cfg.vae.sample_size if args.tiny else args.size
-    dev = torch.device(args.device)
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
     pipe = UniRendererPipeline.create(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev,

@@ -31,7 +31,9 @@ def make_validation_fn(trainer, val_batch: Mapping, out_dir: str,
     and optionally the ground-truth maps, each (B, H, W, 3) in [-1, 1].
     The run's noise comes from a generator on the trainer's device seeded
     with `noise_seed` (default: the step).  Writes
-    `<out_dir>/step-<step>/<map>.png` (the first image of each map)."""
+    `<out_dir>/step-<step>/<map>.png` (the first image of each map).
+    Under a process group every rank calls it (the sharded masters are
+    gathered) and rank 0 alone samples, writes and returns the PSNRs."""
     from unirenderer_tpu_torch.pipelines import UniRendererPipeline
     from unirenderer_tpu_torch.train.train_step import use_params
     os.makedirs(out_dir, exist_ok=True)
@@ -40,8 +42,12 @@ def make_validation_fn(trainer, val_batch: Mapping, out_dir: str,
     dual = trainer.dual
 
     def validation_fn(state, step: int) -> Dict[str, float]:
+        params = (state.params if state.sharding is None
+                  else state.sharding.full_params(state.params))
+        if trainer.rank != 0:       # rank 0 samples and writes
+            return {}
         compute = {n: p.detach().to(trainer.compute_dtype)
-                   for n, p in state.params.items()}
+                   for n, p in params.items()}
         seed = step if noise_seed is None else noise_seed
         gen = torch.Generator(device=trainer.device).manual_seed(seed)
         was_training = dual.training

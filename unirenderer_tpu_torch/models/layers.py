@@ -207,10 +207,14 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
         src = x if ctx is None else ctx
-        b, sq, inner = x.shape
+        b, sq, _ = x.shape
         sk = src.shape[1]
+        q = self.to_q(x)
+        # the head width from the projection: under tensor parallelism
+        # (parallel/mesh.py) this rank's to_q gives num_heads local heads
+        inner = q.shape[-1]
         hd = inner // self.num_heads
-        q = self.to_q(x).reshape(b, sq, self.num_heads, hd)
+        q = q.reshape(b, sq, self.num_heads, hd)
         k = self.to_k(src).reshape(b, sk, self.num_heads, hd)
         v = self.to_v(src).reshape(b, sk, self.num_heads, hd)
         out = attention(q, k, v, is_self=ctx is None)

@@ -14,13 +14,24 @@
     python -m unirenderer_tpu_torch.train --workdir runs/bank \\
         --mesh-dir data/meshes --env-dir data/envs --scene-bank
 
-`--device` defaults to cuda and raises without a card.  A run resumes
-from the newest checkpoint in <workdir>/checkpoints (checkpoint-<step>:
-the params npz in the JAX package's format, read by `tools/train.py
---init-params`, and the optimizer, counters and generator state).
-Writes <workdir>/metrics.jsonl and phases.jsonl, and with --validation
-maps and PSNRs under <workdir>/validation.  FSDP and the SD weight port
-(`--fsdp`, `--sd-*`) are not part of the port.
+    # data-parallel over N ranks (one per card), masters and optimizer
+    # state sharded (FSDP), from the SD-v1.4 diffusers weights:
+    torchrun --nproc_per_node N -m unirenderer_tpu_torch.train \\
+        --workdir runs/sd --synthetic --fsdp --sd-unet unet.bin \\
+        --sd-vae vae.bin --sd-text text_encoder.bin
+
+`--device` defaults to $UNIRENDER_PLATFORM, else cuda, and raises without
+a card.  Under torchrun every rank loads, renders and trains on its
+own rows of the global batch (--batch-per-device x ranks), NCCL on the
+card, gloo with `--device cpu`; rank 0 logs, checkpoints and validates,
+and each rank keeps its own --cache-dir pool (`rank<r>-of-<n>`).  A run
+resumes from the newest checkpoint in <workdir>/checkpoints
+(checkpoint-<step>: the params npz in the JAX package's format, read by
+`tools/train.py --init-params`, and the optimizer, counters and
+generator state; full tensors, so a run resumes at any number of
+ranks).  Writes <workdir>/metrics.jsonl and
+phases.jsonl, and with --validation maps and PSNRs under
+<workdir>/validation.
 """
 
 from __future__ import annotations
@@ -94,7 +105,15 @@ def main(argv=None) -> int:
                     help="the frozen VAE: a params .npz, or a directory of "
                          "checkpoints (python -m "
                          "unirenderer_tpu_torch.train.vae's vae_checkpoints)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the dual-stream masters and optimizer state "
+                         "over the ranks (FSDP)")
+    ap.add_argument("--sd-unet", help="diffusers UNet state_dict (.bin, "
+                                      ".safetensors)")
+    ap.add_argument("--sd-vae", help="diffusers VAE state_dict")
+    ap.add_argument("--sd-text", help="CLIP text-encoder state_dict")
+    ap.add_argument("--device",
+                    help="default: $UNIRENDER_PLATFORM, else cuda")
     args = ap.parse_args(argv)
 
     if args.render_in_step and (args.synthetic or args.cache_batches):
@@ -108,6 +127,15 @@ def main(argv=None) -> int:
                  "the device-resident bank every step)")
     if not args.synthetic and not (args.mesh_dir and args.env_dir):
         ap.error("give --mesh-dir and --env-dir, or --synthetic")
+    sd_files = (args.sd_unet, args.sd_vae, args.sd_text)
+    if any(sd_files) and not all(sd_files):
+        ap.error("--sd-unet requires --sd-vae and --sd-text (the port "
+                 "installs all three stacks together)")
+
+    from unirenderer_tpu_torch.parallel.mesh import initialize_distributed
+    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    device = setup_runtime(args.device)
+    initialize_distributed(device=device)
 
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.core.checkpoint import (
@@ -164,10 +192,10 @@ def main(argv=None) -> int:
         print(f"[train] scene bank: {n_m} meshes, {n_e} envs, "
               f"{bank_bytes(bank) / 1e6:.0f} MB device-resident")
 
-    trainer = Trainer(cfg, args.workdir, device=args.device,
+    trainer = Trainer(cfg, args.workdir, device=device,
                       report_to=tuple(args.report_to.split(",")),
                       render_in_step=args.render_in_step, scene_bank=bank,
-                      bank_augment=not args.no_augment)
+                      bank_augment=not args.no_augment, fsdp=args.fsdp)
     if args.vae_ckpt:
         if args.vae_ckpt.endswith(".npz"):
             vae_flat, vstep = load_params_npz(args.vae_ckpt)
@@ -183,12 +211,24 @@ def main(argv=None) -> int:
         trainer.install_dual(dual_flat)
         print(f"[train] warm-start dual params from {args.init_params} "
               f"(step {pstep})")
+    if args.sd_unet:
+        from unirenderer_tpu_torch.models import surgery
+        ported = surgery.port_sd_checkpoint(
+            *(surgery.load_torch_state_dict(f) for f in sd_files), cfg,
+            device=trainer.device)
+        trainer.install_ported(*ported)
+        del ported
+        print(f"[train] SD weights ported from {', '.join(sd_files)}")
 
-    batch = cfg.train.batch_size_per_device
+    # the global batch; each rank makes and trains on its own rows
+    from unirenderer_tpu_torch.parallel.mesh import host_local_batch_slice
+    batch = cfg.train.batch_size_per_device * trainer.dp
+    rows = host_local_batch_slice(batch, trainer.mesh)
     res = args.resolution or cfg.data.resolution
     batches = None
     if args.synthetic:
-        batches = synthetic_batches(cfg, batch, device=trainer.device)
+        batches = synthetic_batches(cfg, batch, device=trainer.device,
+                                    rows=rows)
     elif not args.scene_bank:
         from unirenderer_tpu_torch.data.objaverse import (
             ObjaverseData, stack_scene,
@@ -198,20 +238,26 @@ def main(argv=None) -> int:
             from unirenderer_tpu_torch.data.input_pipeline import (
                 input_pipeline,
             )
-            batches = input_pipeline(ds, batch, collate=stack_scene)
+            batches = input_pipeline(
+                ds, cfg.train.batch_size_per_device, collate=stack_scene,
+                process_index=trainer.rank, process_count=trainer.dp)
         else:
             # the collate in the loop: a prefetch thread measured no
             # faster at flagship width (the step's host work and the
             # collate's share one interpreter)
             batches = rendered_batches(ds, batch, res, cfg.data.ssaa,
-                                       device=trainer.device)
+                                       device=trainer.device, rows=rows)
     if args.cache_batches:
         from unirenderer_tpu_torch.data.input_pipeline import (
             cached_batch_source,
         )
+        cache_dir = args.cache_dir
+        if cache_dir and trainer.dp > 1:
+            cache_dir = os.path.join(cache_dir,
+                                     f"rank{trainer.rank}-of-{trainer.dp}")
         batches = cached_batch_source(batches, args.cache_batches,
-                                      cache_dir=args.cache_dir,
-                                      expect_batch=batch,
+                                      cache_dir=cache_dir,
+                                      expect_batch=rows.stop - rows.start,
                                       expect_resolution=res)
 
     validation_fn = None
@@ -239,6 +285,9 @@ def main(argv=None) -> int:
                           validation_fn=validation_fn)
     print(f"finished at step {state.step}; metrics in "
           f"{trainer.metrics_path}, checkpoints in {trainer.ckpt_dir}")
+    if trainer.mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

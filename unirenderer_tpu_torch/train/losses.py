@@ -49,17 +49,21 @@ def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dual_stream_loss(img_pred: torch.Tensor, attr_pred: torch.Tensor,
                      img_target: torch.Tensor, attr_target: torch.Tensor,
                      cycle_img_pred: torch.Tensor, is_inverse: bool,
-                     cfg: TrainConfig
+                     cfg: TrainConfig, contrastive_scale: float = 1.0
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics).  Targets are the clean latents; `cycle_img_pred`
     is the cycle pass's prediction on inverse steps (zeros on forward
     steps, as the JAX step reports it).  Both branches' terms are in the
-    metrics; the loss is the branch's."""
+    metrics; the loss is the branch's.  `contrastive_scale` weighs the
+    contrastive term (a data-parallel rank's share of the global batch's
+    term: `parallel/mesh.ParamSharding.contrastive_scale`)."""
     loss_img = mse(img_pred, img_target)
     loss_attr = mse(attr_pred, attr_target)
     contr = (contrastive_loss(attr_pred, cfg.contrastive_temperature)
              if img_pred.shape[0] >= 2
              else torch.zeros((), device=img_pred.device))
+    if contrastive_scale != 1.0:
+        contr = contr * contrastive_scale
     loss_cycle = mse(cycle_img_pred, img_target)
     if is_inverse:
         loss = loss_img + loss_attr + cfg.w_cycle * loss_cycle

@@ -38,7 +38,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -127,12 +128,13 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm_fn: Callable = global_norm) -> torch.Tensor:
     """optax's `clip_by_global_norm` in place: g / norm * max_norm when
     norm >= max_norm, else g unchanged (no epsilon).  Returns the norm
-    before clipping; stays on the device (no host copy)."""
-    norm = global_norm(grads)
+    before clipping (`norm_fn` of the gradients); stays on the device (no
+    host copy)."""
+    norm = norm_fn(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     torch._foreach_mul_(grads, factor)
@@ -231,7 +233,8 @@ def make_loss_fn(cfg: SystemConfig, dual: DualStreamModel,
     holds the 8 maps, `ctx` is the (1, L, D) blank-prompt context."""
 
     def loss(batch: Mapping[str, torch.Tensor], ctx: torch.Tensor,
-             draws: Draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             draws: Draws, contrastive_scale: float = 1.0
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         b = batch["image"].shape[0]
         lat = encode_batch(cfg, vae, batch, draws.enc_noise)
         env = lat["env"] + cfg.diffusion.env_noise_aug * draws.env_noise
@@ -259,13 +262,15 @@ def make_loss_fn(cfg: SystemConfig, dual: DualStreamModel,
         else:
             cycle_pred = torch.zeros_like(img_pred)
         return dual_stream_loss(img_pred, attr_pred, latents_img, attr24,
-                                cycle_pred, draws.is_inverse, cfg.train)
+                                cycle_pred, draws.is_inverse, cfg.train,
+                                contrastive_scale)
 
     def loss_from_draws(params: Mapping[str, torch.Tensor],
                         batch: Mapping[str, torch.Tensor],
-                        ctx: torch.Tensor, draws: Draws):
+                        ctx: torch.Tensor, draws: Draws,
+                        contrastive_scale: float = 1.0):
         with use_params(dual, params):
-            return loss(batch, ctx, draws)
+            return loss(batch, ctx, draws, contrastive_scale)
 
     return loss_from_draws
 
@@ -277,13 +282,16 @@ class TrainState:
     call as the JAX `TrainState.step`) and of optimizer updates
     (`updates`, the learning rate's index), and under gradient
     accumulation the micro-steps into the current update and their
-    running mean (`mini_step`, `acc`: None between updates)."""
+    running mean (`mini_step`, `acc`: None between updates).  Over several
+    ranks `sharding` (`parallel/mesh.ParamSharding`) says where each
+    master lives and runs the step's collectives; None in one process."""
     params: Dict[str, nn.Parameter]
     optimizer: torch.optim.Optimizer
     step: int = 0
     updates: int = 0
     mini_step: int = 0
     acc: Optional[List[torch.Tensor]] = None
+    sharding: Any = None
 
 
 def create_train_state(cfg: SystemConfig,
@@ -307,7 +315,7 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
     grad_bf16 = cfg.train.grad_dtype == "bfloat16"
 
     def grad_fn(params: Mapping[str, torch.Tensor], batch, ctx,
-                draws: Draws):
+                draws: Draws, contrastive_scale: float = 1.0):
         if grad_bf16:
             compute = {n: p.detach().to(compute_dtype).requires_grad_()
                        for n, p in params.items()}
@@ -316,7 +324,8 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
             compute = {n: p.to(compute_dtype) for n, p in params.items()}
             wrt = list(params.values())
         with use_params(dual, compute):     # over the backward too
-            loss, metrics = loss_fn(compute, batch, ctx, draws)
+            loss, metrics = loss_fn(compute, batch, ctx, draws,
+                                    contrastive_scale)
             grads = torch.autograd.grad(loss, wrt)
         grads = [g.float() for g in grads]
         return grads, {k: v.detach() for k, v in metrics.items()}
@@ -336,9 +345,11 @@ def make_update_fn(cfg: SystemConfig):
     def update(state: TrainState,
                grads: List[torch.Tensor]) -> torch.Tensor:
         state.step += 1
+        norm_fn = (global_norm if state.sharding is None
+                   else state.sharding.global_norm)
         norm = None
         if k > 1:
-            norm = global_norm(grads)
+            norm = norm_fn(grads)
             if state.acc is None:
                 state.acc = [torch.zeros_like(g) for g in grads]
             n = state.mini_step          # optax: acc + (g - acc) / (n + 1)
@@ -349,9 +360,9 @@ def make_update_fn(cfg: SystemConfig):
                 return norm
             grads, state.acc, state.mini_step = state.acc, None, 0
         if max_norm > 0:
-            clipped = clip_by_global_norm_(grads, max_norm)
+            clipped = clip_by_global_norm_(grads, max_norm, norm_fn)
         else:
-            clipped = global_norm(grads) if norm is None else norm
+            clipped = norm_fn(grads) if norm is None else norm
         for p, g in zip(state.params.values(), grads):
             p.grad = g
         for group in state.optimizer.param_groups:
@@ -372,14 +383,25 @@ def make_train_step(cfg: SystemConfig, dual: DualStreamModel,
     none; the learning rate of the update; AdamW or Adafactor; under
     accumulation every k-th call); `state` is updated in place.
     metrics["grad_norm"] is the norm of this call's gradients before
-    clipping."""
+    clipping.  With `state.sharding` the call is one rank's part of a
+    sharded step on its slice of the batch (`parallel/mesh.shard_step`):
+    FSDP masters gathered, gradients and metrics averaged over the data
+    ranks."""
     grad_fn = make_grad_fn(cfg, dual, vae, schedule, compute_dtype)
     update = make_update_fn(cfg)
 
     def train_step(state: TrainState, ctx: torch.Tensor,
                    batch: Mapping[str, torch.Tensor],
                    draws: Draws) -> Dict[str, torch.Tensor]:
-        grads, metrics = grad_fn(state.params, batch, ctx, draws)
+        sh = state.sharding
+        if sh is None:
+            grads, metrics = grad_fn(state.params, batch, ctx, draws)
+        else:
+            grads, metrics = grad_fn(
+                sh.compute_params(state.params, compute_dtype), batch, ctx,
+                draws, sh.contrastive_scale)
+            grads = sh.reduce_grads(grads)
+            metrics = sh.mean_metrics(metrics)
         metrics["grad_norm"] = update(state, grads)
         return metrics
 

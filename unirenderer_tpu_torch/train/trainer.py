@@ -25,6 +25,17 @@ checks them), checkpoints every `checkpoint_every` steps through the
 asynchronous saver (rotation to `checkpoints_total_limit`) and at the
 end, runs `validation_fn` every `validation_every` steps, and appends
 the phase timer's totals to `phases.jsonl`.
+
+Under a process group (`parallel/mesh.initialize_distributed`, e.g. the
+CLI under `torchrun`) the trainer is one rank of data-parallel training
+(`fsdp=True`: FSDP) over every rank: `step` takes this rank's rows of
+the global batch (`parallel/mesh.host_local_batch_slice`: each rank
+renders only its own), every rank draws the global batch's random
+numbers from the same generator and keeps its slice, and the step equals
+the single-process step over the global batch.  The scene bank stays
+whole on every rank and the drawn scenes are split.  Rank 0 logs, writes
+the checkpoints, which hold the full tensors (FSDP slices gathered), so a
+run resumes at any world size, and runs the validation sampling.
 """
 
 from __future__ import annotations
@@ -35,34 +46,29 @@ from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unirenderer_tpu_torch.core.checkpoint import AsyncSaver, CheckpointManager
 from unirenderer_tpu_torch.core.config import SystemConfig, TrainConfig
-from unirenderer_tpu_torch.core.convert import load_flax
+from unirenderer_tpu_torch.core.convert import (
+    flax_permutations, load_flax, state_dict_from_flax,
+)
 from unirenderer_tpu_torch.core.debug import AnomalyGuard
 from unirenderer_tpu_torch.core.tracing import MetricLogger, PhaseTimer
 from unirenderer_tpu_torch.diffusion.schedule import DiffusionSchedule
 from unirenderer_tpu_torch.models.clip_text import CLIPTextEncoder, blank_ids
 from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
 from unirenderer_tpu_torch.models.vae import AutoencoderKL
+from unirenderer_tpu_torch.parallel import mesh as pmesh
 from unirenderer_tpu_torch.pipelines import fill_random_
 from unirenderer_tpu_torch.train.train_step import (
     BATCH_KEYS, TrainState, create_train_state, draw, make_bank_train_step,
-    make_render_train_step, make_train_step,
+    make_optimizer, make_render_train_step, make_train_step,
 )
+from unirenderer_tpu_torch.utils.runtime import resolve_device
 
 # steps between two logged (host-read) metrics records, as the JAX loop
 LOG_EVERY = 10
-
-
-def resolve_device(device) -> torch.device:
-    """The device asked for; a CUDA device with no card raises (nothing
-    falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' asked for, but no CUDA card is "
-                           "available (pass device='cpu' to run on the CPU)")
-    return dev
 
 
 def _build(module: torch.nn.Module, device, dtype,
@@ -88,13 +94,17 @@ def resolve_compute_dtype(cfg: TrainConfig,
 
 
 class Trainer:
-    """Owns the models, the train state and the step loop on one device;
-    the step computes in `resolve_compute_dtype(cfg.train, device)`."""
+    """Owns the models, the train state and the step loop on one device
+    (one rank of a process group, when one is initialised); the step
+    computes in `resolve_compute_dtype(cfg.train, device)`.  `fsdp`:
+    shard the masters and optimizer state of every tensor of at least
+    `mesh.FSDP_MIN_SIZE` elements over the ranks
+    (`mesh.fsdp_param_sharding`; one process holds every slice)."""
 
     def __init__(self, cfg: SystemConfig, workdir: str, device="cuda",
                  report_to=("jsonl",), render_in_step: bool = False,
                  scene_bank: Optional[Mapping[str, np.ndarray]] = None,
-                 bank_augment: bool = True):
+                 bank_augment: bool = True, fsdp: bool = False):
         if render_in_step and scene_bank is not None:
             raise ValueError("scene_bank renders in the step already; "
                              "give render_in_step or scene_bank")
@@ -118,29 +128,44 @@ class Trainer:
         self.text.requires_grad_(False)
         self.ctx = self._blank_ctx()
         self.schedule = DiffusionSchedule.create(cfg.diffusion, self.device)
-        self.state: TrainState = create_train_state(cfg, self.dual)
+        self.mesh = None
+        self.dp, self.rank = 1, 0
+        if dist.is_available() and dist.is_initialized():
+            self.mesh = pmesh.make_mesh()
+            self.dp, self.rank = dist.get_world_size(), dist.get_rank()
+            plan = pmesh.fsdp_plan(self.dual, self.dp) if fsdp else None
+            self.state: TrainState = pmesh.shard_train_state(
+                cfg, self.dual, self.mesh, plan)
+        else:
+            self.state = create_train_state(cfg, self.dual)
         args = (cfg, self.dual, self.vae, self.schedule, compute_dtype)
-        self._step = make_train_step(*args)
+        self._step = self._sharded(make_train_step(*args))
         self.bank = None
         if scene_bank is not None:
             from unirenderer_tpu_torch.data.scene_bank import bank_to_device
             self.bank = bank_to_device(scene_bank, self.device)
-            self._bank_step = make_bank_train_step(*args,
-                                                   augment=bank_augment)
+            self._bank_step = self._sharded(
+                make_bank_train_step(*args, augment=bank_augment),
+                replicate_batch=True)
         elif render_in_step:
-            self._render_step = make_render_train_step(*args)
+            self._render_step = self._sharded(make_render_train_step(*args))
         # every step's random numbers, drawn on the host
         self.generator = torch.Generator().manual_seed(seed)
         self.metrics_path = os.path.join(workdir, "metrics.jsonl")
         self.ckpt_dir = os.path.join(workdir, "checkpoints")
         self.ckpt = CheckpointManager(self.ckpt_dir,
                                       cfg.train.checkpoints_total_limit)
-        self.logger = MetricLogger(self.metrics_path, report_to=report_to)
+        self.logger = (MetricLogger(self.metrics_path, report_to=report_to)
+                       if self.rank == 0 else None)
         self.timer = PhaseTimer(self.device)
         self.guard = AnomalyGuard()
         self._saver = AsyncSaver(self.ckpt)
 
     # ------------------------------------------------------------------
+    def _sharded(self, step, replicate_batch: bool = False):
+        return step if self.mesh is None else pmesh.shard_step(
+            step, self.mesh, replicate_batch=replicate_batch)
+
     def _blank_ctx(self) -> torch.Tensor:
         """The constant ' ' prompt's context (1, L, D), computed once."""
         with torch.no_grad():
@@ -150,10 +175,49 @@ class Trainer:
         """Warm-start the dual-stream masters from flax params (a params
         npz); the optimizer starts fresh.  A checkpoint in the workdir
         still wins (`train` resumes from it)."""
-        with torch.no_grad():
-            n = load_flax(self.dual, flat)
-        self.state = create_train_state(self.cfg, self.dual)
+        n = self._load_masters(state_dict_from_flax(flat))
+        self._fresh_optimizer()
         return n
+
+    def install_ported(self, dual: torch.nn.Module, vae: torch.nn.Module,
+                       text: torch.nn.Module) -> None:
+        """Install ported SD weights (`models/surgery.port_sd_checkpoint`)
+        for all three stacks: the dual-stream masters (the optimizer starts
+        fresh), the frozen VAE and the text encoder, and recompute the
+        blank-prompt context from the ported encoder."""
+        self._load_masters(dict(dual.named_parameters()))
+        self._fresh_optimizer()
+        with torch.no_grad():
+            self.vae.load_state_dict(vae.state_dict(), strict=True)
+            self.text.load_state_dict(text.state_dict(), strict=True)
+        self.ctx = self._blank_ctx()
+
+    def _load_masters(self, full: Mapping[str, torch.Tensor]) -> int:
+        """The masters <- full tensors by parameter name, strictly."""
+        own = dict(self.dual.named_parameters())
+        missing, unused = sorted(set(own) - set(full)), sorted(
+            set(full) - set(own))
+        if missing or unused:
+            raise KeyError(f"{len(missing)} missing {missing[:5]}, "
+                           f"{len(unused)} unused {unused[:5]}")
+        for k, v in full.items():
+            if tuple(v.shape) != tuple(own[k].shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} vs "
+                                 f"{tuple(own[k].shape)}")
+        sh = self.state.sharding
+        with torch.no_grad():
+            if sh is None:
+                for k, p in own.items():
+                    p.copy_(full[k])
+            else:
+                sh.load_full_(self.state.params, full)
+        return len(full)
+
+    def _fresh_optimizer(self) -> None:
+        s = self.state
+        self.state = TrainState(s.params, make_optimizer(
+            self.cfg, s.params, flax_permutations(self.dual)),
+            sharding=s.sharding)
 
     def install_vae(self, flat: Mapping[str, np.ndarray]) -> int:
         """The frozen VAE from flax params."""
@@ -177,13 +241,15 @@ class Trainer:
         """One train step; `is_inverse` forces the branch of the dual
         timestep draw.  `batch`: the 8 maps (moved to the device); with
         `render_in_step` a stacked scene; with a scene bank nothing (the
-        step draws its scenes)."""
+        step draws its scenes).  Over several ranks, this rank's rows of
+        the global batch (`batch_size_per_device` x ranks; the draws are
+        the global batch's)."""
         T = self.cfg.diffusion.num_train_timesteps
         if self.bank is not None:
             from unirenderer_tpu_torch.data.scene_bank import (
                 bank_sizes, draw_scenes,
             )
-            b = self.cfg.train.batch_size_per_device
+            b = self.cfg.train.batch_size_per_device * self.dp
             scene_draws = draw_scenes(self.generator, bank_sizes(self.bank),
                                       b, self.cfg.data)
             draws = draw(self.generator, b,
@@ -194,7 +260,7 @@ class Trainer:
         if self.render_in_step:
             scene = {k: torch.as_tensor(v).to(self.device)
                      for k, v in batch.items()}
-            b = scene["v_pos"].shape[0]
+            b = scene["v_pos"].shape[0] * self.dp
             draws = draw(self.generator, b,
                          self._latent_hw(self.cfg.data.resolution), T,
                          is_inverse)
@@ -203,25 +269,43 @@ class Trainer:
         batch = {k: torch.as_tensor(batch[k]).to(self.device)
                  for k in BATCH_KEYS}
         b, h, w, _ = batch["image"].shape
-        draws = draw(self.generator, b, self._latent_hw(h), T, is_inverse)
+        draws = draw(self.generator, b * self.dp, self._latent_hw(h), T,
+                     is_inverse)
         return self._step(self.state, self.ctx, batch,
                           draws.to(self.device))
 
     # ------------------------------------------------------------------
     def resume_state(self) -> Dict:
         """Everything of the training state but the params, as a
-        checkpoint's `state.pt` holds it."""
-        s = self.state
-        return dict(optimizer=s.optimizer.state_dict(), step=s.step,
-                    updates=s.updates, mini_step=s.mini_step, acc=s.acc,
+        checkpoint's `state.pt` holds it (sharded tensors gathered full: a
+        collective over the ranks)."""
+        s, sh = self.state, self.state.sharding
+        opt, acc = s.optimizer.state_dict(), s.acc
+        if sh is not None:
+            opt = sh.full_optimizer_state(opt)
+            acc = None if acc is None else [
+                sh.gather(n, a) for n, a in zip(sh.names, acc)]
+        return dict(optimizer=opt, step=s.step, updates=s.updates,
+                    mini_step=s.mini_step, acc=acc,
                     generator=self.generator.get_state())
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The masters as full tensors (FSDP slices gathered: a collective
+        over the ranks)."""
+        sh = self.state.sharding
+        return (dict(self.state.params) if sh is None
+                else sh.full_params(self.state.params))
 
     def save(self, blocking: bool = True) -> str:
         """Checkpoint the current step (`checkpoint-<step>`: the params
-        npz, JAX format, f32, and the rest of the state); returns its
-        directory."""
-        self._saver.save(self.state.step, self.dual, self.state.params,
-                         self.resume_state(), blocking=blocking)
+        npz, JAX format, f32, and the rest of the state, full tensors);
+        returns its directory.  Every rank calls it; rank 0 writes."""
+        params, state = self.full_params(), self.resume_state()
+        if self.rank == 0:
+            self._saver.save(self.state.step, self.dual, params, state,
+                             blocking=blocking)
+        if blocking and self.mesh is not None:
+            dist.barrier()
         return self.ckpt.step_dir(self.state.step)
 
     def maybe_resume(self) -> int:
@@ -236,14 +320,17 @@ class Trainer:
         if restored is None:
             return self.state.step
         params, st = restored
-        with torch.no_grad():
-            load_flax(self.dual, params)
-        s = self.state
-        s.optimizer.load_state_dict(st["optimizer"])
+        self._load_masters(state_dict_from_flax(params))
+        s, sh = self.state, self.state.sharding
+        opt, acc = st["optimizer"], st["acc"]
+        if sh is not None:
+            opt = sh.local_optimizer_state(opt, self.device)
+            acc = None if acc is None else [
+                sh.local(n, a) for n, a in zip(sh.names, acc)]
+        s.optimizer.load_state_dict(opt)
         s.step, s.updates, s.mini_step = st["step"], st["updates"], \
             st["mini_step"]
-        s.acc = (None if st["acc"] is None
-                 else [a.to(self.device) for a in st["acc"]])
+        s.acc = (None if acc is None else [a.to(self.device) for a in acc])
         self.generator.set_state(st["generator"])
         return s.step
 
@@ -267,7 +354,9 @@ class Trainer:
             step = self.state.step
             if step % LOG_EVERY == 0 or step == start + 1:
                 with self.timer.phase("log", sync=True):
-                    self.guard.check(self.logger.log(step, metrics), step)
+                    rec = (self.logger.log(step, metrics) if self.logger
+                           else {k: float(v) for k, v in metrics.items()})
+                    self.guard.check(rec, step)
             if step % cfg.checkpoint_every == 0:
                 with self.timer.phase("checkpoint"):
                     self.save(blocking=False)
@@ -279,38 +368,44 @@ class Trainer:
                 self.state.step % cfg.checkpoint_every != 0:
             self.save(blocking=True)
         self._saver.join()
-        self.timer.dump(os.path.join(self.workdir, "phases.jsonl"))
+        if self.rank == 0:
+            self.timer.dump(os.path.join(self.workdir, "phases.jsonl"))
         return self.state
 
 
 def synthetic_batches(cfg: SystemConfig, batch: int, seed: int = 0,
-                      device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+                      device="cuda", rows: slice = slice(None)
+                      ) -> Iterator[Dict[str, torch.Tensor]]:
     """Random-map batches for smoke runs (no dataset): every map uniform in
     [-1, 1] at the VAE's sample size, from numpy as the JAX source draws
-    them."""
+    them; `rows` of each batch of `batch` (a rank's
+    `host_local_batch_slice`) go to the device."""
     rng = np.random.default_rng(seed)
     hw = cfg.vae.sample_size
     while True:
         yield {k: torch.from_numpy(rng.uniform(-1, 1, (batch, hw, hw, 3))
-                                   .astype(np.float32)).to(device)
+                                   .astype(np.float32)[rows]).to(device)
                for k in BATCH_KEYS}
 
 
 def rendered_batches(dataset, batch: int, resolution: int, ssaa: int,
-                     device="cuda", seed: int = 0, prefetch: int = 0
+                     device="cuda", seed: int = 0, prefetch: int = 0,
+                     rows: slice = slice(None)
                      ) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of the render collate (`data/objaverse.collate_render`, K4
     on the card) over a shuffled pass of the dataset, repeated, without a
-    gradient.  `prefetch` > 0 runs the collate that many batches ahead in
-    a thread (on a side CUDA stream on the card:
-    `data/input_pipeline.device_prefetch`); the batches are the same."""
+    gradient; only `rows` of each batch of `batch` items (a rank's
+    `host_local_batch_slice`) are loaded and rendered.  `prefetch` > 0
+    runs the collate that many batches ahead in a thread (on a side CUDA
+    stream on the card: `data/input_pipeline.device_prefetch`); the
+    batches are the same."""
     from unirenderer_tpu_torch.data.input_pipeline import device_prefetch
     from unirenderer_tpu_torch.data.objaverse import collate_render
     order = np.random.default_rng(seed).permutation(len(dataset))
 
     def make_batch(i):
         items = [dataset[int(order[(i * batch + j) % len(order)])]
-                 for j in range(batch)]
+                 for j in range(batch)[rows]]
         return collate_render(items, resolution=resolution, ssaa=ssaa,
                               device=device)
 

@@ -10,7 +10,8 @@ Trains the VAE on the 8 rendered maps of each batch (`train/vae_train.py`)
 and writes <workdir>/vae_checkpoints/checkpoint-<step> (the params npz is
 the frozen VAE that `python -m unirenderer_tpu_torch.train --vae-ckpt`
 takes) and vae_metrics.jsonl; a run resumes from its newest checkpoint.
-`--device` defaults to cuda and raises without a card.
+`--device` defaults to $UNIRENDER_PLATFORM, else cuda, and raises
+without a card.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def main(argv=None) -> int:
                          "resident bank inside every step")
     ap.add_argument("--no-augment", action="store_true",
                     help="disable the scene-bank augmentations")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device",
+                    help="default: $UNIRENDER_PLATFORM, else cuda")
     args = ap.parse_args(argv)
     if args.scene_bank and (args.synthetic or args.cache_batches):
         ap.error("--scene-bank excludes --synthetic/--cache-batches (it "
@@ -65,12 +67,11 @@ def main(argv=None) -> int:
 
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.train.__main__ import data_paths
-    from unirenderer_tpu_torch.train.trainer import (
-        resolve_device, synthetic_batches,
-    )
+    from unirenderer_tpu_torch.train.trainer import synthetic_batches
     from unirenderer_tpu_torch.train.vae_train import train_vae
+    from unirenderer_tpu_torch.utils.runtime import setup_runtime
 
-    device = resolve_device(args.device)
+    device = setup_runtime(args.device)
     name = "tiny" if args.tiny else args.config
     cfg = getattr(config, name)()
     res = args.resolution or cfg.vae.sample_size
