@@ -163,11 +163,21 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      1e-3 relative of the unwrapped step's (a forward and an inverse step,
      each from the initial weights), K1 / K2 / K2 bwd launches equal to
      `train_step_launches` at every step, cold and warm wall (2 more
-     rounds) and peak memory; (b) two
+     rounds) and peak memory; then the unwrapped step, FSDP and TP+FSDP
+     with Adafactor, each against the unwrapped Adafactor step: loss and
+     norm as above, the masters after the two compared steps within 1e-3
+     relative (norms, tensor by tensor, for every variant), Adafactor's
+     statistics' agreement printed, one line of the peaks of AdamW,
+     Adafactor, FSDP+AdamW and FSDP+Adafactor; (b) two
      processes on the one card through gloo (NCCL will not put two ranks
      on one device), small() r05 weights: a DP step over a global batch of
      4 against one process's step on it, loss within 1e-3 relative and
-     gradient cosine >= 0.999; (c) random SD-v1.4-shaped diffusers state
+     gradient cosine >= 0.999; then a Trainer with FSDP and Adafactor
+     over the two ranks: its step's loss within 1e-3 of one process's, and
+     its sharded optimizer fed rank 0's single-process gradients of two
+     steps against one process's Adafactor fed the same, every master
+     (relative to its update) and statistic within 1e-3; (c) random
+     SD-v1.4-shaped diffusers state
      dicts for the UNet, VAE and CLIP text encoder (keys from the port's
      path maps over its flagship modules) written as fp16 .bin files,
      `port_sd_checkpoint` on the card with fast_init on and off (seconds
@@ -2871,6 +2881,10 @@ KERNELS = {
 # ---------------------------------------------------------------------------
 
 DIST_REL = 1e-3                  # wrapped train step vs unwrapped: loss, norm
+# (a)'s variants in order: each AdamW one against the unwrapped AdamW step,
+# each Adafactor one against the unwrapped Adafactor step
+DIST_VARIANTS = ("unwrapped", "dp", "fsdp", "tp_fsdp", "unwrapped_adafactor",
+                 "fsdp_adafactor", "tp_fsdp_adafactor")
 DIST_WARM_ROUNDS = 2             # timed forward + inverse steps after them
 GLOO_COS = 0.999                 # 2 gloo ranks vs one process: grad cosine
 GLOO_TIMEOUT_S = 300             # both gloo processes (they take ~25-40 s)
@@ -2897,10 +2911,46 @@ def smooth_maps(torch, F, gen, batch, res):
     return out
 
 
+def with_adafactor(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer="adafactor"))
+
+
+def masters_on_host(state):
+    """The full f32 masters of a TrainState, copied to the host one tensor
+    at a time."""
+    sh = state.sharding
+    return {n: (p.detach() if sh is None else sh.gather(n, p.detach())).to(
+        "cpu", copy=True) for n, p in state.params.items()}
+
+
+def adafactor_stats_on_host(state):
+    """{(name, v | v_row | v_col): the statistic on the host} of an
+    Adafactor whose masters are whole (world 1)."""
+    opt = state.optimizer
+    return {(n, k): v.to("cpu", copy=True) for n, p in state.params.items()
+            for k, v in opt.state[p].items() if k != "step"}
+
+
+def max_rel_err(torch, got, want) -> float:
+    """The largest over tensors of |got - want| / |want| (norms), on the
+    card: a step's few elements whose gradient is within float noise of
+    zero move a sign-like update (AdamW's first, Adafactor's unfactored)
+    either way, which a per-element maximum would count."""
+    errs = []
+    for k, w in want.items():
+        w, g = w.to("cuda"), got[k].to("cuda")
+        errs.append(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    return float(torch.stack(errs).max())
+
+
 def distributed_steps(torch, F, cfg, checked):
     """(a): one process, an NCCL group of one rank; the unwrapped flagship
     step and its DP, FSDP and TP+FSDP wrappings on the same weights,
-    batches and draws, forward / inverse / forward / inverse."""
+    batches and draws, forward / inverse / forward / inverse; then the
+    unwrapped step, FSDP and TP+FSDP with Adafactor."""
     import torch.distributed as dist
     from unirenderer_tpu_torch.diffusion.schedule import DiffusionSchedule
     from unirenderer_tpu_torch.models.dual_stream import DualStreamModel
@@ -2931,21 +2981,26 @@ def distributed_steps(torch, F, cfg, checked):
         batches = [smooth_maps(torch, F, gen, b, res) for _ in kinds]
         counted = ("groupnorm_silu", "flash_attention",
                    "flash_attention_backward")
-        out, ref, ref_warm = {}, None, None
-        for variant in ("unwrapped", "dp", "fsdp", "tp_fsdp"):
+        out = {}
+        for variant in DIST_VARIANTS:
+            kind = variant.removesuffix("_adafactor")
+            adafactor = kind != variant
+            vcfg = with_adafactor(cfg) if adafactor else cfg
+            if kind == "unwrapped":   # the reference of what follows
+                ref = ref_warm = ref_params = ref_stats = None
             t = time.perf_counter()
             with torch.device("meta"):
                 dual = DualStreamModel(cfg.unet)
             dual = _build(dual, "cuda", torch.float32, torch.Generator(
                 device="cuda").manual_seed(SEED)).train()
-            base = make_train_step(cfg, dual, vae, schedule, torch.bfloat16)
-            if variant == "unwrapped":
-                step, state = base, create_train_state(cfg, dual)
-            elif variant in ("dp", "fsdp"):
+            base = make_train_step(vcfg, dual, vae, schedule, torch.bfloat16)
+            if kind == "unwrapped":
+                step, state = base, create_train_state(vcfg, dual)
+            elif kind in ("dp", "fsdp"):
                 step, state = pm.make_sharded_train_step(
-                    cfg, dual, base, mesh1, fsdp=variant == "fsdp")
+                    vcfg, dual, base, mesh1, fsdp=kind == "fsdp")
             else:
-                step, state = pm.make_tp_train_step(cfg, dual, base, mesh2,
+                step, state = pm.make_tp_train_step(vcfg, dual, base, mesh2,
                                                     fsdp=True)
             sh = state.sharding
             sharded = 0 if sh is None else len(sh.layout)
@@ -2983,12 +3038,22 @@ def distributed_steps(torch, F, cfg, checked):
                                  loss=float(metrics["loss"]),
                                  grad_norm=float(metrics["grad_norm"]),
                                  launches={k: launches[k] for k in counted}))
+                if i == 1:              # the masters after the compared steps
+                    params = masters_on_host(state)
+                    stats = (adafactor_stats_on_host(state) if adafactor
+                             else None)
             peak = torch.cuda.max_memory_allocated()
+            held = torch.cuda.memory_allocated()   # between steps
             if ref is None:
-                ref = rows
+                ref, ref_params, ref_stats = rows, params, stats
             errs = [max(abs(r["loss"] - q["loss"]) / abs(q["loss"]),
                         abs(r["grad_norm"] - q["grad_norm"]) / q["grad_norm"])
                     for r, q in zip(rows[:2], ref[:2])]
+            params_err = max_rel_err(torch, params, ref_params)
+            errs.append(params_err)
+            stats_err = (max_rel_err(torch, stats, ref_stats) if adafactor
+                         else None)
+            del params, stats
             warm = {kind: min(r["wall_s"] for r in rows[2:]
                               if r["inverse"] == (kind == "inverse"))
                     for kind in ("forward", "inverse")}
@@ -2997,25 +3062,39 @@ def distributed_steps(torch, F, cfg, checked):
                 f"{rows[0]['loss']:.6g}, grad norm {rows[0]['grad_norm']:.6g}"
                 f", inverse loss {rows[1]['loss']:.6g}, grad norm "
                 f"{rows[1]['grad_norm']:.6g}: max rel err vs unwrapped "
-                f"{max(errs):.2e}; cold {rows[0]['wall_s']:.3f} / "
+                f"{max(errs):.2e} (updated masters {params_err:.2e}"
+                + ("" if stats_err is None else
+                   f"; Adafactor's statistics {stats_err:.2e}, not gated: "
+                   "they follow the bf16 gradients") +
+                f"); cold {rows[0]['wall_s']:.3f} / "
                 f"{rows[1]['wall_s']:.3f} s, warm (best of "
                 f"{DIST_WARM_ROUNDS}) {warm['forward']:.3f} / "
                 f"{warm['inverse']:.3f} s (forward / inverse; unwrapped "
                 f"{ref_warm['forward'] if ref_warm else warm['forward']:.3f}"
                 f" / {ref_warm['inverse'] if ref_warm else warm['inverse']:.3f}"
-                f"); peak {peak / 2**30:.2f} GiB")
+                f"); peak {peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held "
+                f"between steps")
             if ref_warm is None:
                 ref_warm = warm
             check(all(math.isfinite(r["loss"]) for r in rows),
                   f"{variant}: a non-finite loss")
-            check(max(errs) <= DIST_REL, f"{variant}: loss or grad norm "
-                  f"{max(errs):.3g} from the unwrapped step's")
-            out[variant] = dict(steps=rows, peak_bytes=peak, sharded=sharded,
+            check(max(errs) <= DIST_REL, f"{variant}: loss, grad norm or "
+                  f"updated masters {max(errs):.3g} from the unwrapped "
+                  f"step's")
+            out[variant] = dict(steps=rows, peak_bytes=peak, held_bytes=held,
+                                sharded=sharded,
                                 build_s=build_s, max_rel_err=max(errs),
+                                params_rel_err=params_err,
+                                stats_rel_err=stats_err,
                                 warm_forward_s=warm["forward"],
                                 warm_inverse_s=warm["inverse"])
             del dual, base, step, state, metrics, init
             torch.cuda.empty_cache()
+        gib = {v: out[v]["peak_bytes"] / 2 ** 30 for v in out}
+        log(f"  peak memory at world 1: AdamW {gib['unwrapped']:.2f}, "
+            f"Adafactor {gib['unwrapped_adafactor']:.2f}, FSDP+AdamW "
+            f"{gib['fsdp']:.2f}, FSDP+Adafactor {gib['fsdp_adafactor']:.2f}, "
+            f"TP+FSDP+Adafactor {gib['tp_fsdp_adafactor']:.2f} GiB")
         return out
     finally:
         dist.destroy_process_group()
@@ -3075,11 +3154,86 @@ def gloo_rank(rank: int, port: int, out: str) -> int:
                     loss=loss, step_loss=step_loss, loss_ref=ref[1],
                     grad_cos=cos, grad_norm=float(flat.norm()),
                     grad_norm_ref=float(ref[0].norm()))
+        res["adafactor"] = gloo_adafactor(torch, cfg, batch, h, tmp)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
     return 0
+
+
+def gloo_adafactor(torch, cfg, batch, h, tmp):
+    """(b) with Adafactor: a Trainer with FSDP over the two gloo ranks
+    (small() r05 weights; the big kernels split, their factored statistics
+    made whole over the ranks).  Its step's loss against one process's;
+    then the sharded optimizer alone, fed rank 0's single-process
+    gradients of a forward and an inverse step, against one process's
+    Adafactor fed the same: every master and statistic."""
+    import torch.distributed as dist
+    from torch import nn
+    from unirenderer_tpu_torch.parallel import mesh as pm
+    from unirenderer_tpu_torch.train.compare import (
+        small_weights, trainer_with,
+    )
+    from unirenderer_tpu_torch.train.train_step import (
+        draw, make_grad_fn, make_lr_schedule, make_optimizer,
+    )
+    rank = dist.get_rank()
+    acfg = with_adafactor(cfg)
+    tr = trainer_with(acfg, small_weights(), "cuda", torch.bfloat16,
+                      os.path.join(tmp, "adafactor"), fsdp=True)
+    sh = tr.state.sharding
+    init = {n: t.detach().clone()
+            for n, t in sh.full_params(tr.state.params).items()}
+    grad_fn = make_grad_fn(acfg, tr.dual, tr.vae, tr.schedule,
+                           tr.compute_dtype)
+    grads = []
+    for inverse in (False, True):
+        draws = draw(torch.Generator().manual_seed(SEED + 1), 4, (h, h),
+                     acfg.diffusion.num_train_timesteps, inverse).to("cuda")
+        if rank == 0:                     # one process's step, whole masters
+            g, m = grad_fn({n: t.detach().requires_grad_()
+                            for n, t in init.items()}, batch, tr.ctx, draws)
+            if not inverse:
+                loss_ref = float(m["loss"])
+        else:
+            g = [torch.empty_like(t) for t in init.values()]
+        pm.replicate(g)                   # rank 0's gradients on both
+        grads.append(dict(zip(init, g)))
+        if not inverse:                   # the Trainer's sharded step
+            step_loss = float(tr._step(tr.state, tr.ctx, batch,
+                                       draws)["loss"])
+    # the sharded optimizer and one process's, fed the same gradients
+    masters = {n: nn.Parameter(sh.local(n, init[n]).clone()) for n in init}
+    opt = sh.optimizer(acfg, masters)
+    whole = {n: nn.Parameter(init[n].clone()) for n in init}
+    ref_opt = make_optimizer(acfg, whole, sh.perms)
+    lr = make_lr_schedule(acfg)
+    for i, g in enumerate(grads):
+        for n in init:
+            masters[n].grad = sh.local(n, g[n])
+            whole[n].grad = g[n]
+        for o in (opt, ref_opt):
+            for group in o.param_groups:
+                group["lr"] = lr(i)
+            o.step()
+    full = sh.full_params(masters)
+    stats = sh.full_optimizer_state(opt.state_dict())["state"]
+    split = sum(1 for n in init if sh.split(n) is not None)
+    out = None
+    if rank == 0:
+        ref_stats = ref_opt.state_dict()["state"]
+        params_err = max(float(
+            (full[n] - whole[n]).abs().max()
+            / (whole[n] - init[n]).abs().max().clamp_min(1e-30))
+            for n in init)
+        stats_err = max(float(
+            (stats[i][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            for i, st in ref_stats.items() for k, v in st.items()
+            if k != "step")
+        out = dict(loss=step_loss, loss_ref=loss_ref, split=split,
+                   update_rel_err=params_err, stats_rel_err=stats_err)
+    return out
 
 
 def gloo_two_ranks(torch):
@@ -3108,6 +3262,7 @@ def gloo_two_ranks(torch):
                   f"\n{text[-3000:]}")
         with open(out) as f:
             res = json.load(f)
+    ada = res.pop("adafactor")
     for branch, r in res.items():
         rel = abs(r["loss"] - r["loss_ref"]) / abs(r["loss_ref"])
         step_rel = abs(r["step_loss"] - r["loss_ref"]) / abs(r["loss_ref"])
@@ -3119,8 +3274,20 @@ def gloo_two_ranks(torch):
             f"{r['grad_norm_ref']:.5g}")
         check(max(rel, step_rel) <= DIST_REL and r["grad_cos"] >= GLOO_COS,
               f"2 gloo ranks disagree with one process ({branch})")
+    rel = abs(ada["loss"] - ada["loss_ref"]) / abs(ada["loss_ref"])
+    log(f"  2 gloo ranks, small(), Adafactor over FSDP masters "
+        f"({ada['split']} tensors split): the Trainer's forward step's loss "
+        f"{ada['loss']:.6g} vs one process {ada['loss_ref']:.6g} (rel "
+        f"{rel:.2e}); fed the same gradients for 2 steps, the sharded "
+        f"optimizer's masters {ada['update_rel_err']:.2e} of the update and "
+        f"its statistics {ada['stats_rel_err']:.2e} from one process's "
+        f"(limit {DIST_REL})")
+    check(ada["split"] > 0 and max(rel, ada["update_rel_err"],
+                                   ada["stats_rel_err"]) <= DIST_REL,
+          "2 gloo ranks: Adafactor over FSDP masters disagrees with one "
+          "process")
     log(f"  2 gloo ranks: {wall:.1f} s for both processes")
-    return dict(branches=res, wall_s=wall)
+    return dict(branches=res, adafactor=ada, wall_s=wall)
 
 
 def sd_port(torch, cfg):
@@ -3316,8 +3483,10 @@ def phase_distributed(torch, F, cfg, checked):
         t = time.perf_counter()
         log(f"  ({part}) " + {
             "a": "NCCL, world 1: the flagship step unwrapped, DP, FSDP, "
-                 "TP+FSDP on a (1, 1) mesh",
-            "b": "2 ranks on the one card through gloo, small()",
+                 "TP+FSDP on a (1, 1) mesh; unwrapped, FSDP, TP+FSDP with "
+                 "Adafactor",
+            "b": "2 ranks on the one card through gloo, small(): DP; FSDP "
+                 "with Adafactor",
             "c": "the SD-v1.4 weight port at flagship width",
             "d": "activation introspection, small() r05 weights"}[part])
         out[part] = fn()

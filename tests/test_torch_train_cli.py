@@ -10,7 +10,10 @@
     from the VAE run's checkpoints;
   * the flag exclusions of tools/train.py;
   * the training CLI and `parallel/world_steps.py` under torchrun on 2
-    gloo ranks.
+    gloo ranks;
+  * the training CLI with `--fsdp --optimizer adafactor` under torchrun
+    (one gloo process): it checkpoints the Adafactor state and a second
+    run resumes from it.
 """
 
 import json
@@ -21,6 +24,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from unirenderer_tpu_torch.core.checkpoint import load_params_npz
 
@@ -138,6 +142,37 @@ def test_train_cli_under_torchrun_two_ranks(tmp_path):
     assert os.listdir(work / "checkpoints") == ["checkpoint-2"]
 
 
+def _torchrun(nproc, *args):
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+         str(_free_port()), "-m", *args, "--device", "cpu"],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def test_train_cli_fsdp_adafactor_under_torchrun_resumes(tmp_path):
+    """`torchrun -m unirenderer_tpu_torch.train --fsdp --optimizer
+    adafactor` writes a checkpoint with Adafactor's statistics (full
+    tensors), and a second run resumes from it."""
+    args = ("unirenderer_tpu_torch.train", "--workdir", str(tmp_path),
+            "--tiny", "--synthetic", "--fsdp", "--optimizer", "adafactor")
+    _torchrun(1, *args, "--steps", "2")
+    out = _torchrun(1, *args, "--steps", "3")
+    assert "resumed from step 2" in out
+    ckpts = tmp_path / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["checkpoint-2", "checkpoint-3"]
+    state = torch.load(ckpts / "checkpoint-3" / "state.pt",
+                       weights_only=False)
+    assert state["step"] == 3
+    kinds = {k for s in state["optimizer"]["state"].values() for k in s}
+    assert kinds == {"step", "v", "v_row", "v_col"}
+    assert all(s["step"] == 3 for s in state["optimizer"]["state"].values())
+    assert [r["step"] for r in records(tmp_path / "metrics.jsonl")] == [1, 3]
+
+
 def test_world_steps_under_torchrun_two_ranks(tmp_path):
     """`parallel/world_steps.py` on 2 gloo ranks at tiny(), f32: DP,
     FSDP, TP and TP+FSDP (1 x 2) each within 1e-5 of one process's loss
@@ -161,3 +196,23 @@ def test_world_steps_under_torchrun_two_ranks(tmp_path):
     for v in res["variants"].values():
         assert v["loss_rel_vs_one_process"] <= 1e-5, v
         assert v["grad_norm_rel_vs_dp"] <= 1e-5, v
+
+
+def test_world_steps_adafactor_under_torchrun_two_ranks(tmp_path):
+    """`parallel/world_steps.py --optimizer adafactor` on 2 gloo ranks at
+    tiny(), f32: every variant within 1e-5 of one process's loss and of
+    DP's gradient norm, and warm steps taken through the sharded
+    Adafactor."""
+    out_json = tmp_path / "world2.json"
+    _torchrun(2, "unirenderer_tpu_torch.parallel.world_steps", "--config",
+              "tiny", "--warm", "1", "--optimizer", "adafactor", "--out",
+              str(out_json))
+    with open(out_json) as f:
+        res = json.load(f)
+    assert res["ok"] and res["optimizer"] == "adafactor"
+    assert set(res["variants"]) == {"dp", "fsdp", "tp", "tp_fsdp"}
+    for v in res["variants"].values():
+        assert v["loss_rel_vs_one_process"] <= 1e-5, v
+        assert v["grad_norm_rel_vs_dp"] <= 1e-5, v
+        assert len(v["steps"]) == 4 and all(
+            np.isfinite(s["loss"]) for s in v["steps"])

@@ -4,6 +4,8 @@ of `unirenderer_tpu/core/tracing.py` `PhaseTimer` and `MetricLogger`).
 `PhaseTimer(device)` sums the wall time of named phases; a phase timed
 with `sync=True` waits for the card (`torch.cuda.synchronize`) before it
 stops the clock, so it counts the device work it enqueued.
+`profile_trace(log_dir)` records a `torch.profiler` trace of its body
+(the JAX `profile_trace`, which records a `jax.profiler` trace).
 `MetricLogger` writes one JSON line per logged step, and with
 `report_to` containing "tensorboard" also TensorBoard scalars (skipped
 with a warning when `torch.utils.tensorboard` cannot be imported).
@@ -15,7 +17,7 @@ import contextlib
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -49,6 +51,30 @@ class PhaseTimer:
     def dump(self, path: str) -> None:
         with open(path, "a") as f:
             f.write(json.dumps(self.summary()) + "\n")
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]) -> Iterator[Optional[object]]:
+    """A `torch.profiler` trace of the body, CPU activity and, where a card
+    is present, CUDA activity, written on exit as a Chrome trace
+    (`trace-<pid>-<ns>.json`, for chrome://tracing or Perfetto) under
+    `log_dir`; yields the profiler.  Nothing is recorded for a `log_dir`
+    of None or ""."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
 class MetricLogger:

@@ -12,8 +12,9 @@ explicit:
   * FSDP (`fsdp_param_sharding`, the JAX rule in torch's layout): a
     parameter of at least FSDP_MIN_SIZE elements keeps only its rank's
     slice of its largest `data`-divisible flax dimension as the f32
-    master, with the optimizer state of that slice.  A step casts the
-    slices to the compute type and all-gathers them, a bucket of tensors
+    master, with the optimizer state of that slice (Adafactor's factored
+    statistics whole on every rank, `train/adafactor.py`).  A step casts
+    the slices to the compute type and all-gathers them, a bucket of tensors
     a collective, and reduce-scatters the gradients back to the slices;
     smaller tensors are replicated, their gradients all-reduced.  The
     gathered tensors live through the backward (no resharding after the
@@ -460,6 +461,7 @@ class ParamSharding:
                                                    model_axis).items():
                 self.layout[n] = (model_axis, d, b)
         self.module = module
+        self.perms = flax_permutations(module)
 
     # -- where a tensor lives --------------------------------------------
     def _axis(self, axis: str):
@@ -474,6 +476,17 @@ class ParamSharding:
         axis, dim, blocks = self.layout[name]
         _, n, r = self._axis(axis)
         return split_blocks(full, dim, blocks, n, r)
+
+    def split(self, name: str):
+        """The optimizer's view of where parameter `name` lives
+        (`train/adafactor.Split`): None where it is whole on this rank, or
+        split over an axis of one rank."""
+        from unirenderer_tpu_torch.train.adafactor import Split
+        if name not in self.layout:
+            return None
+        axis, dim, blocks = self.layout[name]
+        group, n, r = self._axis(axis)
+        return None if n == 1 else Split(dim, n, r, group, blocks)
 
     def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's piece (a collective over the
@@ -624,16 +637,33 @@ class ParamSharding:
                 p.copy_(self.local(n, full[n].to(p.device)))
 
     def _map_optimizer_state(self, sd: Dict, fn) -> Dict:
+        """`fn(name, tensor)` applied to each statistic that is cut like
+        its parameter (the optimizer's one param group is in the order of
+        `names`): AdamW's moments and Adafactor's unfactored `v` (kept in
+        the flax layout: cut in the parameter's); Adafactor's `v_row` /
+        `v_col` (whole on every rank) and the step counts stay."""
+        from unirenderer_tpu_torch.train.adafactor import STATE_LAYOUT
         state = {}
         for i, s in sd["state"].items():
             name = self.names[int(i)]
-            state[i] = {k: (fn(name, v) if isinstance(v, torch.Tensor)
-                            and v.dim() > 0 else v) for k, v in s.items()}
+            perm = self.perms[name]
+            state[i] = {}
+            for k, v in s.items():
+                where = STATE_LAYOUT.get(k, "param")
+                if isinstance(v, torch.Tensor) and v.dim() > 0 and \
+                        where != "whole":
+                    if where == "flax" and perm is not None:
+                        inv = sorted(range(len(perm)), key=perm.__getitem__)
+                        v = fn(name, v.permute(inv)).permute(
+                            perm).contiguous()
+                    else:
+                        v = fn(name, v)
+                state[i][k] = v
         return dict(sd, state=state)
 
     def full_optimizer_state(self, sd: Dict) -> Dict:
-        """An optimizer state dict over the masters with every per-element
-        tensor gathered full (a collective)."""
+        """An optimizer state dict over the masters with every statistic
+        that is cut like its parameter gathered full (a collective)."""
         return self._map_optimizer_state(sd, self.gather)
 
     def local_optimizer_state(self, sd: Dict, device) -> Dict:
@@ -646,9 +676,7 @@ class ParamSharding:
         (replicated and tensor-parallel masters are the module's own
         parameters; an FSDP master is a parameter of its own, and the
         module keeps a meta-device placeholder in its place)."""
-        from unirenderer_tpu_torch.train.train_step import (
-            TrainState, make_optimizer,
-        )
+        from unirenderer_tpu_torch.train.train_step import TrainState
         own = dict(self.module.named_parameters())
         masters: Dict[str, nn.Parameter] = {}
         for name in self.names:
@@ -665,12 +693,16 @@ class ParamSharding:
                 raise TypeError(f"master parameters must be f32, got "
                                 f"{p.dtype}")
             masters[name] = p.requires_grad_(True)
-        if cfg.train.optimizer != "adamw" and self.layout:
-            raise ValueError(f"{cfg.train.optimizer} over sharded masters: "
-                             "its statistics span the split dimensions; "
-                             "shard with adamw")
-        return TrainState(masters, make_optimizer(
-            cfg, masters, flax_permutations(self.module)), sharding=self)
+        return TrainState(masters, self.optimizer(cfg, masters),
+                          sharding=self)
+
+    def optimizer(self, cfg, masters: Mapping[str, torch.Tensor]):
+        """`train_step.make_optimizer` over this rank's masters, each with
+        its flax layout and its split (Adafactor's statistics are made
+        whole over the split's group)."""
+        from unirenderer_tpu_torch.train.train_step import make_optimizer
+        return make_optimizer(cfg, masters, self.perms,
+                              {n: self.split(n) for n in masters})
 
 
 def shard_train_state(cfg, dual: nn.Module, mesh,

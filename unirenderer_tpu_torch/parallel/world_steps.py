@@ -2,7 +2,8 @@
 `parallel/mesh.py`, one process a card, at the world size torchrun gives:
 
     torchrun --nproc_per_node 4 \\
-        -m unirenderer_tpu_torch.parallel.world_steps [--out world4.json]
+        -m unirenderer_tpu_torch.parallel.world_steps [--out world4.json] \\
+        [--optimizer adafactor]
 
     # a rehearsal on the CPU (gloo), tiny() widths:
     torchrun --nproc_per_node 4 \\
@@ -19,12 +20,15 @@ batch (no gradient) and whose gradient norm against DP's, both within
 s/step of each is kept (the slowest rank's wall a step); and the largest
 peak memory of any rank.  Rank 0 prints one JSON object as its last line
 (and writes it to `--out`); a disagreement exits non-zero.  On the card
-the step is the flagship recipe's: bf16 compute, remat, AdamW.
+the step is the flagship recipe's: bf16 compute, remat, AdamW, or with
+`--optimizer adafactor` Adafactor (its factored statistics whole on every
+rank, summed over the split dimension's group).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -64,6 +68,8 @@ def main(argv=None) -> int:
     ap.add_argument("--config", choices=("tiny", "small", "flagship"),
                     default="flagship")
     ap.add_argument("--warm", type=int, default=2)
+    ap.add_argument("--optimizer", choices=("adamw", "adafactor"),
+                    default="adamw")
     ap.add_argument("--device", help="default: $UNIRENDER_PLATFORM, else "
                                      "cuda")
     ap.add_argument("--out")
@@ -90,6 +96,8 @@ def main(argv=None) -> int:
         device = torch.device("cuda", torch.cuda.current_device())
     world, rank = dist.get_world_size(), dist.get_rank()
     cfg = getattr(config, args.config)()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer=args.optimizer))
     dtype = resolve_compute_dtype(cfg.train, device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     with torch.device("meta"):
@@ -194,7 +202,7 @@ def main(argv=None) -> int:
         del dual, base, step, state, metrics, init
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    result = dict(world=world, config=args.config,
+    result = dict(world=world, config=args.config, optimizer=args.optimizer,
                   global_batch=b, reference_loss=ref_loss, variants=out,
                   ok=ok)
     if rank == 0:

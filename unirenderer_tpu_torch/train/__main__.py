@@ -15,10 +15,12 @@
         --mesh-dir data/meshes --env-dir data/envs --scene-bank
 
     # data-parallel over N ranks (one per card), masters and optimizer
-    # state sharded (FSDP), from the SD-v1.4 diffusers weights:
+    # state sharded (FSDP), from the SD-v1.4 diffusers weights; with
+    # `--optimizer adafactor` the lowest-memory recipe (Adafactor's
+    # factored statistics whole on every rank):
     torchrun --nproc_per_node N -m unirenderer_tpu_torch.train \\
         --workdir runs/sd --synthetic --fsdp --sd-unet unet.bin \\
-        --sd-vae vae.bin --sd-text text_encoder.bin
+        --sd-vae vae.bin --sd-text text_encoder.bin [--optimizer adafactor]
 
 `--device` defaults to $UNIRENDER_PLATFORM, else cuda, and raises without
 a card.  Under torchrun every rank loads, renders and trains on its

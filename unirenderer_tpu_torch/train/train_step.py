@@ -100,13 +100,16 @@ def make_lr_schedule(cfg: SystemConfig) -> Callable[[int], float]:
 
 def make_optimizer(cfg: SystemConfig, params: Mapping[str, torch.Tensor],
                    layouts: Optional[Mapping[str, Optional[Tuple[int, ...]]]]
-                   = None) -> torch.optim.Optimizer:
+                   = None, splits: Optional[Mapping[str, Any]] = None
+                   ) -> torch.optim.Optimizer:
     """The update optax's `adamw` (the config's betas, eps and decoupled
     weight decay) or `adafactor(lr, clipping_threshold=1.0,
-    weight_decay_rate=adam_weight_decay)` makes.  Adafactor needs each
-    parameter's permutation to its flax layout (`layouts`,
-    `core/convert.flax_permutations`).  The learning rate is set from
-    `make_lr_schedule` before every update."""
+    weight_decay_rate=adam_weight_decay)` makes, over `params` in their
+    order (one param group).  Adafactor needs each parameter's permutation
+    to its flax layout (`layouts`, `core/convert.flax_permutations`) and,
+    for a master that is a piece of a sharded tensor, its split (`splits`,
+    `train/adafactor.Split`; AdamW is elementwise and needs none).  The
+    learning rate is set from `make_lr_schedule` before every update."""
     t = cfg.train
     if t.optimizer == "adamw":
         return torch.optim.AdamW(list(params.values()), lr=t.learning_rate,
@@ -116,7 +119,9 @@ def make_optimizer(cfg: SystemConfig, params: Mapping[str, torch.Tensor],
     if t.optimizer == "adafactor":
         if layouts is None:
             raise ValueError("adafactor needs the parameters' flax layouts")
-        return Adafactor([(p, layouts[n]) for n, p in params.items()],
+        splits = splits or {}
+        return Adafactor([(p, layouts[n], splits.get(n))
+                          for n, p in params.items()],
                          lr=t.learning_rate, clipping_threshold=1.0,
                          weight_decay_rate=t.adam_weight_decay)
     raise ValueError(f"optimizer {t.optimizer!r}: 'adamw' or 'adafactor'")
@@ -326,8 +331,9 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
         with use_params(dual, compute):     # over the backward too
             loss, metrics = loss_fn(compute, batch, ctx, draws,
                                     contrastive_scale)
-            grads = torch.autograd.grad(loss, wrt)
-        grads = [g.float() for g in grads]
+            grads = list(torch.autograd.grad(loss, wrt))
+        for i, g in enumerate(grads):   # each compute-type gradient freed
+            grads[i] = g.float()        # as its f32 copy is made
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     return grad_fn

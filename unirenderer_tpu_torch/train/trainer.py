@@ -215,9 +215,10 @@ class Trainer:
 
     def _fresh_optimizer(self) -> None:
         s = self.state
-        self.state = TrainState(s.params, make_optimizer(
-            self.cfg, s.params, flax_permutations(self.dual)),
-            sharding=s.sharding)
+        opt = (make_optimizer(self.cfg, s.params, flax_permutations(self.dual))
+               if s.sharding is None
+               else s.sharding.optimizer(self.cfg, s.params))
+        self.state = TrainState(s.params, opt, sharding=s.sharding)
 
     def install_vae(self, flat: Mapping[str, np.ndarray]) -> int:
         """The frozen VAE from flax params."""
