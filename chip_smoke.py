@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,14] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,15] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9-14: phase 8 reuses phase 3's flagship weights, freed before phase
+8, 7, 9-15: phase 8 reuses phase 3's flagship weights, freed before phase
 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
@@ -192,6 +192,33 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      the CPU and f32 on the CPU: the same scopes, finite values; the 10
      worst scopes of card-bf16 against CPU-bf16 and of CPU-bf16 against
      CPU-f32, and the first scope in forward order past 2^-7 relative
+ 15  f32 on the card (TF32 off): (a) the f32 forms of K1, K2 (with its
+     log-sum-exp), K2s, K3 (both running-max settings) and K2 bwd against
+     their plain versions in f32 at every K1 / K2 signature of small()'s
+     paths in this phase, the flagship headline shapes and ragged ones:
+     K1 within 2^-16 * max|plain| and a rerun bit-equal, K2 / K2s / K3
+     2^-14, K2's log-sum-exp 2^-16 absolute, K2 bwd's dQ, dK, dV 2^-12 and
+     a rerun within that; times against the f32 bounds (bytes, f32 FMA
+     operations at 67 TFLOP/s, one exp a score forward), the plain version
+     and one library call in f32; K1's f32 launch plans (x kept in shared
+     memory or re-read) at every small(), medium() and flagship signature;
+     (b) the trained small() weights in f32, card against CPU: one forward
+     and one inverse model evaluation within 1e-4 * max|ref|, a 20-step
+     forward render from the same noise within 1e-3, and the splash and
+     unet_flash routes (K2s / K3 in f32, launches from the config) within
+     1e-3 of the default route's render; phase 4's bf16 figures beside;
+     (c) the held-out harness in f32 (forward PSNR, inverse at ensemble 1;
+     phase 7's margins, phase 7's bf16 figures beside), every K1 / K2 call
+     checked in (a); (d) one small() train step in f32 through
+     `train/compare.py`, card against CPU, each branch: loss within 1e-4
+     relative, gradient cosine >= 0.99999, norm within 1e-4, the cosines by
+     stream x attention / norm / other, phase 9's bf16 figures beside; (e)
+     `eval/vae_recon` in f32 on the held-out set (n=32, vae_small.npz): the
+     six PSNRs and their mean; on 4 objects the card's PSNRs within 0.01 dB
+     of the CPU's from the same images and posterior draw; (f) `python -m
+     unirenderer_tpu_torch.train` and `.train.vae` at small() with no type
+     given, 2 synthetic steps each: f32, finite losses, the f32 kernels
+     launched (the counts the CLIs print)
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -246,7 +273,7 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15"
 MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
 REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
 REUSE_ROUNDS = 3                 # warm requests of each, in turns
@@ -674,6 +701,8 @@ def _wrappers():
 def reset_counters():
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "launches_f32"):
+            w.launches_f32 = 0
         w.seen.clear()
 
 
@@ -842,7 +871,10 @@ def small_inverse_request(torch, F, gen, batch, res):
     return dict(image=req["albedo"], mask=req["mask"])
 
 
-def phase_small_weights(torch, F):
+def small_pipes(torch, dtype):
+    """The repo's trained small() weights through the flax converter, on
+    the card in `dtype` and on the CPU in f32 (plain versions) -> (card,
+    host, keys loaded on the card, keys in the files)."""
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.core.checkpoint import load_params_npz
     from unirenderer_tpu_torch.eval.quality import TEXT_NPZ
@@ -854,7 +886,7 @@ def phase_small_weights(torch, F):
     n_keys = len(dual_flat) + len(vae_flat) + len(text_flat)
     card = UniRendererPipeline.create(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
-        dtype=torch.bfloat16)
+        dtype=dtype)
     loaded = card.load_flax(dual=dual_flat, vae=vae_flat, text=text_flat)
     host = UniRendererPipeline.create(
         cfg, torch.Generator().manual_seed(SEED), device="cpu",
@@ -865,32 +897,49 @@ def phase_small_weights(torch, F):
         f"{n_dec} of them the attribute decoder's), {VAE_NPZ} and "
         f"{TEXT_NPZ}: {loaded} of {n_keys} keys, {n_keys - loaded} skipped")
     check(loaded == n_keys, "the converter skipped keys")
+    return card, host, loaded, n_keys
 
-    # one forward and one inverse model evaluation, card bf16 against host
-    # f32 plain versions
-    g = torch.Generator().manual_seed(SEED)
+
+def small_model_evals(torch, cfg, pipes, g):
+    """One forward (image stream with the attribute encoder's residuals)
+    and one inverse (attribute streams on the UNet's taps) model
+    evaluation at batch 2 on each pipeline, from inputs drawn from the CPU
+    generator `g` -> {"forward": [out per pipe], "inverse": [...]}, on the
+    host."""
     u, s, b = cfg.unet, cfg.unet.sample_size, 2
     img = torch.randn((b, s, s, u.in_channels), generator=g)
     attr = torch.randn((b, s, s, u.attr_channels), generator=g)
     ctx = torch.randn((b, cfg.text.max_length, u.cross_attention_dim),
                       generator=g)
     t_img = torch.tensor([999, 400])
-    preds, attr_preds = [], []
-    for pipe in (card, host):
+    out = {"forward": [], "inverse": []}
+    for pipe in pipes:
         dev = pipe.device
+        zero = torch.zeros(b, dtype=torch.long, device=dev)
         with torch.no_grad():
-            down, mid = pipe.dual.encode_attr(
-                attr.to(dev), torch.zeros(b, dtype=torch.long, device=dev),
-                ctx.to(dev))
-            preds.append(pipe.dual.image_stream_with_residuals(
+            down, mid = pipe.dual.encode_attr(attr.to(dev), zero,
+                                              ctx.to(dev))
+            out["forward"].append(pipe.dual.image_stream_with_residuals(
                 img.to(dev), t_img.to(dev), ctx.to(dev), down, mid).cpu())
-            down, mid = pipe.dual.unet_raw_taps(
-                img.to(dev), torch.zeros(b, dtype=torch.long, device=dev),
-                ctx.to(dev))
-            attr_preds.append(pipe.dual.attr_streams_with_unet_taps(
+            down, mid = pipe.dual.unet_raw_taps(img.to(dev), zero,
+                                                ctx.to(dev))
+            out["inverse"].append(pipe.dual.attr_streams_with_unet_taps(
                 attr.to(dev), t_img.to(dev), ctx.to(dev), down, mid).cpu())
+    return out
+
+
+def phase_small_weights(torch, F):
+    from unirenderer_tpu_torch.core import config
+    cfg = config.small()
+    card, host, loaded, n_keys = small_pipes(torch, torch.bfloat16)
+
+    # one forward and one inverse model evaluation, card bf16 against host
+    # f32 plain versions
+    g = torch.Generator().manual_seed(SEED)
+    b = 2
     result = dict(loaded_keys=loaded, file_keys=n_keys)
-    for what, (got, want) in (("forward", preds), ("inverse", attr_preds)):
+    evals = small_model_evals(torch, cfg, (card, host), g)
+    for what, (got, want) in evals.items():
         err = (got - want).abs().max().item()
         tol = SMALL_MODEL_REL * want.abs().max().item()
         log(f"  small() {what} model eval, card bf16 vs CPU f32: max|diff| "
@@ -1337,14 +1386,15 @@ def phase_render_chain(torch, cfg, pipe, checked, rast_checked):
 # ---------------------------------------------------------------------------
 
 
-def phase_held_out(torch, ensembles=(1, 5)):
-    """-> (the scores, the first leg's held-out (gt, forward) images, which
-    phase 13 scores with LPIPS and FID)."""
+def phase_held_out(torch, ensembles=(1, 5), dtype_name="bfloat16"):
+    """The harness on the card computing in `dtype_name` -> (the scores,
+    the first leg's held-out (gt, forward) images, which phase 13 scores
+    with LPIPS and FID)."""
     from unirenderer_tpu_torch.eval.quality import (
         held_out_scores, small_trained_pipeline,
     )
     t = time.perf_counter()
-    pipe = small_trained_pipeline("cuda", torch.bfloat16)
+    pipe = small_trained_pipeline("cuda", getattr(torch, dtype_name))
     out, images = {}, None
     for e in ensembles:
         r = held_out_scores(pipe, n=32, num_steps=20, noise_seeds=(1000,),
@@ -1356,9 +1406,10 @@ def phase_held_out(torch, ensembles=(1, 5)):
         out[f"ensemble_{e}"] = r
         value, inv, ref = (r["psnr_forward_render"], r["inverse"],
                            INVERSE_REFERENCE[e])
-        log(f"  held-out forward PSNR {value:.3f} dB (n=32, 20 steps, bf16 "
-            f"on the card) beside QUALITY_r05_fixed's {PSNR_REFERENCE:.2f} "
-            f"dB; set generated in {r['generate_seconds']:.1f} s")
+        log(f"  held-out forward PSNR {value:.3f} dB (n=32, 20 steps, "
+            f"{dtype_name} on the card) beside QUALITY_r05_fixed's "
+            f"{PSNR_REFERENCE:.2f} dB; set generated in "
+            f"{r['generate_seconds']:.1f} s")
         log(f"  held-out inverse, ensemble {e}: PSNR normal "
             f"{inv['psnr_maps']['normal']:.3f} (reference {ref['normal']:.2f})"
             f", albedo {inv['psnr_maps']['albedo']:.3f} ({ref['albedo']:.2f})"
@@ -2872,6 +2923,36 @@ KERNELS = {
         replaces="unirenderer_tpu/ops/rasterize_pallas.py:134",
         # the flagship collate's raster: 2 views at 1024^2, T 32768
         headline=lambda r: r.get("case") == "flagship collate"),
+    # the f32 forms (phase 15); launches from the f32 main path: the
+    # held-out harness (K1, K2), the train step (K2 bwd), a small()
+    # request under each route (K2s, K3)
+    "groupnorm_silu_f32": dict(
+        route="cuda", source="unirenderer_tpu_torch/csrc/groupnorm.cu",
+        replaces="unirenderer_tpu/ops/groupnorm.py:42",
+        headline=lambda r: (r["shape"] == [2, 64, 64, 320]
+                            and r["eps"] == 1e-5 and r["silu"]
+                            and r["param_dtype"] == "float32")),
+    "flash_attention_f32": dict(
+        route="cuda",
+        source="unirenderer_tpu_torch/csrc/flash_attention_f32.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:68",
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "flash_attention_backward_f32": dict(
+        route="cuda",
+        source="unirenderer_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:68",
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "splash_attention_f32": dict(
+        route="cuda",
+        source="unirenderer_tpu_torch/csrc/flash_attention_f32.cu",
+        replaces="unirenderer_tpu/ops/flash_attention.py:99",
+        headline=lambda r: r["shape"] == [[2, 4096, 8, 40]] * 2),
+    "attn_kernel_f32": dict(
+        route="cuda",
+        source="unirenderer_tpu_torch/csrc/flash_attention_f32.cu",
+        replaces="unirenderer_tpu/ops/attn_kernel.py:48",
+        headline=lambda r: (r["shape"] == [[2, 4096, 8, 40]] * 2
+                            and r["options"] == {})),
 }
 
 
@@ -3495,6 +3576,610 @@ def phase_distributed(torch, F, cfg, checked):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: f32 on the card
+# ---------------------------------------------------------------------------
+
+F32_GN_REL = 2.0 ** -16          # K1 f32 vs plain, rel. to max|ref|
+F32_ATTN_REL = 2.0 ** -14        # K2 / K2s / K3 f32 vs plain
+F32_LSE_ABS = 2.0 ** -16         # K2 f32's log-sum-exp, absolute
+F32_BWD_REL = 2.0 ** -12         # K2 bwd f32: dQ, dK, dV and a rerun
+F32_MODEL_REL = 1e-4             # small() model eval, card vs CPU, f32
+F32_RENDER_REL = 1e-3            # small() 20-step render, same noise
+F32_ROUTE_REL = 1e-3             # the splash / unet_flash route's render
+F32_TRAIN_LOSS_REL = 1e-4        # small() train step, card vs CPU, f32
+F32_TRAIN_GRAD_COS = 0.99999
+F32_TRAIN_NORM_REL = 1e-4
+VAE_RECON_DB = 0.01              # VAE PSNR, card vs CPU, same draw
+VAE_RECON_OBJECTS = 4
+F32_RAGGED_GN = (((2, 37, 29, 36), 4, 1e-6, True),
+                 ((1, 33, 31, 1920), 32, 1e-6, False))
+F32_RAGGED_ATTN = (((2, 1000, 8, 40), (2, 333, 8, 40)),
+                   ((1, 77, 3, 24), (1, 200, 3, 24)))
+F32_HEADLINE_ATTN = ((2, 4096, 8, 40), (2, 4096, 8, 40))
+
+
+def gn_case_f32(torch, F, timer, gen, case, param_dtype="float32"):
+    """K1's f32 form at one call signature: error against the plain
+    version on the same f32 inputs, a rerun that must give the same bits,
+    the launch plan's branch, and the times."""
+    from unirenderer_tpu_torch.ops import groupnorm as gn
+    shape, groups, eps, silu = case
+    c = shape[-1]
+    pdt = getattr(torch, param_dtype)
+    x = torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+    scale = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+             ).to(pdt)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(pdt)
+    fn = gn.fused_groupnorm_silu
+    y = fn(x, scale, bias, groups, eps, silu)
+    again = fn(x, scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()          # a fault here is the kernel's
+    ref = gn.groupnorm_silu_reference(x, scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    tol = F32_GN_REL * ref.abs().max().item()
+    rerun_equal = bool(torch.equal(y, again))
+    del ref, y, again
+    xc = x.permute(0, 3, 1, 2)
+    w32, b32 = scale.float(), bias.float()
+
+    def library():
+        out = F.group_norm(xc, groups, w32, b32, eps)
+        return F.silu(out) if silu else out
+
+    ms = timer(lambda: fn(x, scale, bias, groups, eps, silu))
+    plain_ms = timer(lambda: gn.groupnorm_silu_reference(x, scale, bias,
+                                                         groups, eps, silu))
+    library_ms = timer(library)
+    nbytes = x.numel() * 4
+    bound_ms = ((2 * nbytes + 2 * c * scale.element_size())
+                / HBM_BYTES_PER_S * 1e3)
+    plan = gn.plan(shape, groups, torch.float32, pdt)
+    return dict(kernel="groupnorm_silu_f32", shape=list(shape),
+                groups=groups, eps=eps, silu=silu, param_dtype=param_dtype,
+                rerun_bit_identical=rerun_equal, cached=plan["cached"],
+                ok=err <= tol and rerun_equal, max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+def attn_bound_f32(torch, qs, ks, forward=True):
+    """The least time for attention over f32 (q shape, k shape): the
+    largest of the bytes (q, k, v read and o written once; the backward
+    also o and dO read, dQ, dK, dV written and the log-sum-exp read), the
+    f32 FMA operations (4 Sq Sk D a (batch, head) forward, 10 backward:
+    the five products) and, forward, one exp a score."""
+    b, sq, h, d = qs
+    sk = ks[1]
+    q_n, k_n = b * sq * h * d, b * sk * h * d
+    if forward:
+        parts = {"operations": 4.0 * b * h * sq * sk * d / FP32_FLOPS * 1e3,
+                 "bytes": 4.0 * (2 * q_n + 2 * k_n) / HBM_BYTES_PER_S * 1e3,
+                 "exp2": b * h * sq * sk / exp2_rate(torch) * 1e3}
+    else:
+        parts = {"operations": 10.0 * b * h * sq * sk * d / FP32_FLOPS * 1e3,
+                 "bytes": (4.0 * (4 * q_n + 4 * k_n) + 4 * b * h * sq)
+                 / HBM_BYTES_PER_S * 1e3}
+    return parts
+
+
+def attn_case_f32(torch, F, timer, gen, case, kernel="flash_attention",
+                  **options):
+    """The f32 form of K2 (with its log-sum-exp), K2s or K3 (with
+    `options`) at (q shape, k shape): error against its plain version on
+    the same f32 inputs (its Q pre-scale rounded to f32, as the kernel's
+    caller rounds it), and the times."""
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        attention_lse_reference, flash_attention_with_lse,
+    )
+    fn, reference = _attention_kernels()[kernel]
+    ref_options = {k: v for k, v in options.items() if k == "running_max"}
+    qs, ks = case
+    q = torch.randn(qs, generator=gen, device="cuda")
+    k = torch.randn(ks, generator=gen, device="cuda")
+    v = torch.randn(ks, generator=gen, device="cuda")
+    o = fn(q, k, v, **options)
+    torch.cuda.synchronize()          # a fault here is the kernel's
+    ref = reference(q, k, v, **ref_options)
+    torch.cuda.synchronize()
+    err = (o - ref).abs().max().item()
+    tol = F32_ATTN_REL * ref.abs().max().item()
+    out = dict(kernel=f"{kernel}_f32", shape=[list(qs), list(ks)],
+               options=options, max_abs_err=err, tol=tol)
+    ok = err <= tol
+    if kernel == "flash_attention":
+        o2, lse = flash_attention_with_lse(q, k, v)
+        lse_err = (lse - attention_lse_reference(q, k, v)[1]
+                   ).abs().max().item()
+        same_o = bool(torch.equal(o, o2))
+        out.update(lse_err=lse_err, lse_tol=F32_LSE_ABS,
+                   lse_bit_identical_o=same_o)
+        ok = ok and lse_err <= F32_LSE_ABS and same_o
+        del o2, lse
+    del ref, o
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    parts = attn_bound_f32(torch, qs, ks)
+    bound_by = max(parts, key=parts.get)
+    out.update(ok=ok, ms=timer(lambda: fn(q, k, v, **options)),
+               plain_ms=timer(lambda: reference(q, k, v, **ref_options)),
+               library_ms=timer(
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               bound_ms=parts[bound_by], bound_by=bound_by,
+               bound_parts=parts)
+    return out
+
+
+def attn_bwd_case_f32(torch, F, timer, gen, case):
+    """K2 bwd's f32 form at (q shape, k shape): dQ, dK, dV against the
+    plain backward on the same f32 inputs and the f32 forward's O and
+    log-sum-exp, a second run within the same tolerance of the first, and
+    the times."""
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, flash_attention_backward,
+        flash_attention_with_lse,
+    )
+    qs, ks = case
+    q = torch.randn(qs, generator=gen, device="cuda")
+    k = torch.randn(ks, generator=gen, device="cuda")
+    v = torch.randn(ks, generator=gen, device="cuda")
+    do = torch.randn(qs, generator=gen, device="cuda")
+    o, lse = flash_attention_with_lse(q, k, v)
+    got = flash_attention_backward(q, k, v, o, lse, do)
+    again = flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = attention_backward_reference(q, k, v, o, lse, do)
+    errs = {n: ((g - w).abs().max().item(),
+                F32_BWD_REL * w.abs().max().item())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    rerun = max((g - a).abs().max().item() for g, a in zip(got, again))
+    del got, again, want
+    tol = min(t for _, t in errs.values())
+    ok = all(e <= t for e, t in errs.values()) and rerun <= tol
+    ms = timer(lambda: flash_attention_backward(q, k, v, o, lse, do))
+    plain_ms = timer(lambda: attention_backward_reference(q, k, v, o, lse,
+                                                          do))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    library_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    del out
+    parts = attn_bound_f32(torch, qs, ks, forward=False)
+    bound_by = max(parts, key=parts.get)
+    return dict(kernel="flash_attention_backward_f32",
+                shape=[list(qs), list(ks)], errs=errs, rerun_diff=rerun,
+                ok=ok, max_abs_err=max(e for e, _ in errs.values()), tol=tol,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=parts[bound_by], bound_by=bound_by,
+                bound_parts=parts)
+
+
+def f32_cases():
+    """Phase 15 (a)'s cases: every K1 / K2 signature of small()'s paths in
+    phase 15 (the harness's forward at batch 4 with the material image
+    encoded, its inverse at batch 4 x ensemble 1, a train step at batch 2,
+    the VAE eval's batch of 8 through encoder and decoder), the flagship
+    headline shapes and ragged ones; the routes at small()'s tileable
+    self-attention shapes and the flagship headline."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.ops.flash_attention import tileable
+    from unirenderer_tpu_torch.pipelines import (
+        KernelCalls, inverse_kernel_cases, kernel_cases,
+    )
+    from unirenderer_tpu_torch.train.train_step import train_kernel_cases
+    cfg = config.small()
+    res = cfg.vae.sample_size
+    gn_cases, attn_cases = set(), set()
+    train_gn, train_attn = train_kernel_cases(cfg, 2, res)
+    vae = KernelCalls(cfg, res)
+    vae.vae_encoder(8)
+    vae.vae_decoder(8)
+    for gn, attn in (kernel_cases(cfg, 4, res, True),
+                     kernel_cases(cfg, 2, res, False),
+                     inverse_kernel_cases(cfg, 4, res, 1),
+                     (train_gn, train_attn), vae.signatures):
+        gn_cases |= gn
+        attn_cases |= attn
+    routed = sorted((q, k) for q, k in attn_cases
+                    if q == k and tileable(q[1], k[1], q[3]))
+    routed.append(F32_HEADLINE_ATTN)
+    return dict(
+        gn=[(c, "float32") for c in sorted(gn_cases) + list(F32_RAGGED_GN)]
+        + [(GN_HEADLINE, "float32"), (GN_HEADLINE, "bfloat16")],
+        attn=sorted(attn_cases) + list(F32_RAGGED_ATTN) + [F32_HEADLINE_ATTN],
+        routes=[("splash_attention", c, {}) for c in routed]
+        + [("attn_kernel", c, f) for c in routed
+           for f in ({}, {"running_max": False})]
+        + [("attn_kernel", F32_RAGGED_ATTN[1][::-1], {})],
+        bwd=sorted(train_attn) + list(F32_RAGGED_ATTN) + [F32_HEADLINE_ATTN],
+        checked={"groupnorm_silu": gn_cases, "flash_attention": attn_cases})
+
+
+def f32_kernel_cases(torch, F, cases):
+    """(a): every case, its inputs from one seeded generator in order."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    timer = Timer(torch)
+    jobs = ([(f"groupnorm_silu f32 {c} params {p}",
+              lambda c=c, p=p: gn_case_f32(torch, F, timer, gen, c, p))
+             for c, p in cases["gn"]]
+            + [(f"flash_attention f32 {c}",
+                lambda c=c: attn_case_f32(torch, F, timer, gen, c))
+               for c in cases["attn"]]
+            + [(f"{n} f32 {c} {o}",
+                lambda n=n, c=c, o=o: attn_case_f32(torch, F, timer, gen, c,
+                                                    n, **o))
+               for n, c, o in cases["routes"]]
+            + [(f"flash_attention_backward f32 {c}",
+                lambda c=c: attn_bwd_case_f32(torch, F, timer, gen, c))
+               for c in cases["bwd"]])
+    results = []
+    for desc, job in jobs:
+        try:
+            r = job()
+        except Exception:
+            log(f"  raised while running {desc}")
+            raise
+        results.append(r)
+        extra = ""
+        if "groups" in r:
+            extra = (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])}"
+                     f" params {r['param_dtype']} rerun bit-identical "
+                     f"{int(r['rerun_bit_identical'])} "
+                     f"{'cached' if r['cached'] else 're-read'} ")
+        elif "errs" in r:
+            extra = (" ".join(f"{n} {e:.3g}/{t:.3g}"
+                              for n, (e, t) in r["errs"].items())
+                     + f" rerun diff {r['rerun_diff']:.3g} ")
+        elif "lse_err" in r:
+            extra = (f"lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} o of the "
+                     f"lse launch bit-identical "
+                     f"{int(r['lse_bit_identical_o'])} ")
+        if r.get("options"):
+            extra += f"{r['options']} "
+        log(f"  {r['kernel']:28s} {json.dumps(r['shape'])} {extra}"
+            f"err={r['max_abs_err']:.3g} tol={r['tol']:.3g} "
+            f"{'ok' if case_ok(r) else 'FAIL'}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  "
+            f"ratio {r['ms'] / r['library_ms']:.2f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}"
+            + "".join(f"; {k} {v:.4f}"
+                      for k, v in r.get("bound_parts", {}).items()) + ")")
+        torch.cuda.empty_cache()
+    del timer
+    bad = [r for r in results if not case_ok(r)]
+    check(not bad, f"{len(bad)} f32 kernel case(s) out of tolerance")
+    return results
+
+
+def f32_gn_branches(torch):
+    """K1's f32 launch plans at every K1 signature of the small(),
+    medium() and flagship forward, inverse and train paths: how many keep
+    x's rows in shared memory and which re-read them."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.ops.groupnorm import plan
+    from unirenderer_tpu_torch.pipelines import (
+        inverse_kernel_cases, kernel_cases,
+    )
+    from unirenderer_tpu_torch.train.train_step import train_kernel_cases
+    out = {}
+    for name in ("small", "medium", "flagship"):
+        cfg = getattr(config, name)()
+        res = cfg.vae.sample_size
+        sigs = (kernel_cases(cfg, 2, res, True)[0]
+                | inverse_kernel_cases(cfg, 2, res, cfg.sampler.ensemble)[0]
+                | train_kernel_cases(cfg, 2, res)[0])
+        reread = sorted(shape for shape, g, _, _ in sigs
+                        if not plan(shape, g, torch.float32,
+                                    torch.float32)["cached"])
+        out[name] = dict(signatures=len(sigs), re_read=reread)
+        log(f"  K1 f32 plans, {name}(): {len(sigs) - len(reread)} of "
+            f"{len(sigs)} signatures keep x in shared memory; re-read: "
+            + (", ".join(str(s) for s in reread) or "none"))
+    return out
+
+
+def f32_small_weights(torch, F, record):
+    """(b): the trained small() weights in f32 on the card against f32 on
+    the CPU: one forward and one inverse model evaluation, one 20-step
+    forward render from the same noise, and the same render under the
+    splash and unet_flash routes (K2s / K3 in f32) against the default
+    route's."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.pipelines import forward_self_attention_calls
+    cfg = config.small()
+    card, host, _, _ = small_pipes(torch, torch.float32)
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    bf16 = record.get("small_weights", {})
+    for what, (got, want) in small_model_evals(torch, cfg, (card, host),
+                                               g).items():
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        was = bf16.get(f"{what}_model_max_abs_err")
+        log(f"  small() {what} model eval, card f32 vs CPU f32: max|diff| / "
+            f"max|ref| {rel:.3g} (limit {F32_MODEL_REL:g})"
+            + (f"; phase 4's card bf16: max|diff| {was:.4g}"
+               if was is not None else ""))
+        check(rel <= F32_MODEL_REL, f"small() {what} model in f32 on the "
+              f"card disagrees with the CPU")
+        out[f"{what}_model_rel_err"] = rel
+    b, res = 2, cfg.vae.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    req = {k: v.cpu() for k, v in synthetic_request(torch, F, gen, b,
+                                                     res).items()}
+    lat = res // cfg.vae.downscale
+    noise = dict(enc_noise=torch.randn((6 * b, lat, lat, 4), generator=g),
+                 img_noise=torch.randn((b, lat, lat, 4), generator=g))
+    renders = {}
+    for route in ("auto", "splash", "unet_flash", "host"):
+        pipe = host if route == "host" else card
+        os.environ["UNIRENDER_ATTN"] = "auto" if route == "host" else route
+        reset_counters()
+        try:
+            renders[route] = pipe.mask2image_3mod_albedo_with_noise(
+                **req, **noise).cpu()
+        finally:
+            os.environ.pop("UNIRENDER_ATTN", None)
+        torch.cuda.synchronize()
+        launches, _ = read_counters()
+        kernel = {"splash": "splash_attention",
+                  "unet_flash": "attn_kernel"}.get(route)
+        if kernel:
+            want = forward_self_attention_calls(cfg, b, res,
+                                                cfg.sampler.num_steps)
+            check(launches[kernel] == want and want > 0,
+                  f"{route} route in f32: {launches[kernel]} launches, "
+                  f"the config says {want}")
+            out[f"route_{route}_launches"] = launches[kernel]
+    ref = renders["host"]
+    check(bool(torch.isfinite(renders["auto"]).all()),
+          "small() f32 render not finite")
+    rel = ((renders["auto"] - ref).abs().max().item()
+           / ref.abs().max().item())
+    was = bf16.get("render_mean_abs_diff")
+    log(f"  small() forward render (20 steps), card f32 vs CPU f32: "
+        f"max|diff| / max|ref| {rel:.3g} (limit {F32_RENDER_REL:g})"
+        + (f"; phase 4's card bf16: mean |diff| {was:.4g}"
+           if was is not None else ""))
+    check(rel <= F32_RENDER_REL, "small() f32 render on the card disagrees "
+          "with the CPU")
+    out["render_rel_err"] = rel
+    for route in ("splash", "unet_flash"):
+        r = ((renders[route] - renders["auto"]).abs().max().item()
+             / renders["auto"].abs().max().item())
+        log(f"  the {route} route in f32: {out[f'route_{route}_launches']} "
+            f"launches, render within {r:.3g} of the default route's "
+            f"(limit {F32_ROUTE_REL:g})")
+        check(r <= F32_ROUTE_REL, f"the {route} route in f32 disagrees")
+        out[f"route_{route}_rel_err"] = r
+    return out
+
+
+def f32_held_out(torch, record, checked):
+    """(c): the held-out harness in f32 on the card, forward and inverse
+    at ensemble 1, gated as phase 7; its K1 / K2 launches (the f32 main
+    path's) and every call checked in (a)."""
+    reset_counters()
+    scores, _ = phase_held_out(torch, ensembles=(1,), dtype_name="float32")
+    torch.cuda.synchronize()
+    launches, seen = read_counters()
+    for name in ("groupnorm_silu", "flash_attention"):
+        unchecked = seen[name] - checked[name]
+        check(not unchecked, f"{name} f32 got calls (a) did not check: "
+              f"{sorted(unchecked)[:3]}")
+        check(launches[name] > 0, f"{name} never launched in f32")
+    bf16 = record.get("held_out", {}).get("ensemble_1")
+    if bf16 is not None:
+        inv = bf16["inverse"]
+        log(f"  phase 7 (bf16 on the card): forward "
+            f"{bf16['psnr_forward_render']:.3f} dB; inverse normal "
+            f"{inv['psnr_maps']['normal']:.3f}, albedo "
+            f"{inv['psnr_maps']['albedo']:.3f} dB, angle "
+            f"{inv['normal_angle_mean']:.2f} deg, MR MAE "
+            f"{inv['metal_rough_mae']:.4f}")
+    return dict(scores=scores, launches=launches,
+                f32_launches={k: _wrappers()[k].launches_f32
+                              for k in ("groupnorm_silu",
+                                        "flash_attention")})
+
+
+def f32_train_step(torch, record):
+    """(d): one small() train step in f32, card against the CPU, from the
+    same weights, batch and draws (`train/compare.py`), each branch."""
+    from unirenderer_tpu_torch.train.compare import compare
+    reset_counters()
+    result = compare([("cuda", torch.float32), ("cpu", torch.float32)])
+    launches, _ = read_counters()
+    bf16 = record.get("small_training", {})
+    for branch, r in result.items():
+        log(f"  small() {branch} step, card f32 vs CPU f32: loss "
+            f"{r['loss']:.8g} vs {r['loss_ref']:.8g} (rel err "
+            f"{r['loss_rel_err']:.3g}, limit {F32_TRAIN_LOSS_REL:g}), "
+            f"gradient cosine {r['grad_cos']:.8f} (>= {F32_TRAIN_GRAD_COS}),"
+            f" norm ratio {r['norm_ratio']:.7f} (within "
+            f"{F32_TRAIN_NORM_REL:g})")
+        log("    cosines by group: " + ", ".join(
+            f"{k} {v:.7f}" for k, v in sorted(r["groups"].items())))
+        if branch in bf16:
+            was = bf16[branch]
+            log(f"    phase 9 (card bf16 vs CPU f32): loss rel err "
+                f"{was['loss_rel_err']:.3g}, cosine {was['grad_cos']:.6f}, "
+                f"norm ratio {was['norm_ratio']:.5f}")
+        check(r["loss_rel_err"] <= F32_TRAIN_LOSS_REL
+              and r["grad_cos"] >= F32_TRAIN_GRAD_COS
+              and abs(r["norm_ratio"] - 1) <= F32_TRAIN_NORM_REL,
+              f"small() {branch} train step in f32 on the card disagrees "
+              f"with the CPU")
+    check(launches["flash_attention_backward"] > 0,
+          "K2 bwd never launched in the f32 step")
+    result["launches"] = launches
+    return result
+
+
+def f32_vae_recon(torch):
+    """(e): the held-out VAE reconstruction eval in f32 on the card (n=32,
+    vae_small.npz); on the first 4 objects the card's PSNRs against the
+    CPU's from the same collated images and posterior draw."""
+    import tempfile
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.data.synthetic import write_dataset
+    from unirenderer_tpu_torch.eval import vae_recon as vr
+    from unirenderer_tpu_torch.eval.metrics import psnr
+    from unirenderer_tpu_torch.eval.quality import HELD_OUT, held_out_paths
+    cfg = config.small()
+    card, step = vr.vae_pipeline(cfg, VAE_NPZ, "cuda")
+    host, _ = vr.vae_pipeline(cfg, VAE_NPZ, "cpu")
+    with tempfile.TemporaryDirectory(prefix="held_out_") as root:
+        write_dataset(root, device="cuda", log=lambda msg: None, **HELD_OUT)
+        meshes, envs = held_out_paths(root)
+        t = time.perf_counter()
+        rep = vr.reconstruction_psnr(card, meshes, envs, n=32)
+        seconds = time.perf_counter() - t
+        log(f"  VAE reconstruction, f32 on the card, n=32 ({VAE_NPZ} step "
+            f"{step}, {seconds:.1f} s): "
+            + ", ".join(f"{m} {v:.3f}" for m, v in rep["psnr"].items())
+            + f" dB; mean {rep['psnr_mean']:.3f} dB")
+        _, images = next(vr.recon_batches(cfg, meshes, envs,
+                                          VAE_RECON_OBJECTS, "cuda"))
+    noise = vr.seeded_draws(0, vr.latent_shape(cfg, images["image"]),
+                            "cpu")
+    diffs = {}
+    for m in vr.MODALITIES:
+        gt = (images[m].cpu().numpy() + 1) / 2
+        card_db, host_db = (psnr((vr.reconstruct(pipe, images[m], noise)
+                                  + 1) / 2, gt) for pipe in (card, host))
+        diffs[m] = card_db - host_db
+    log(f"  {VAE_RECON_OBJECTS} objects, same images and draw, card - CPU: "
+        + ", ".join(f"{m} {d:+.2e}" for m, d in diffs.items())
+        + f" dB (limit {VAE_RECON_DB})")
+    check(max(abs(d) for d in diffs.values()) <= VAE_RECON_DB,
+          "VAE reconstruction PSNR on the card disagrees with the CPU")
+    rep.update(ckpt_step=step, seconds=seconds, card_minus_cpu_db=diffs)
+    return rep
+
+
+def f32_clis(torch):
+    """(f): the train and VAE CLIs at small() on the card with no type
+    given, 2 steps each on synthetic maps, the two processes side by
+    side: f32 (their own report), finite losses, and the f32 kernels
+    launched (the launch counts they print)."""
+    import tempfile
+    out = {}
+    clis = (("train", "unirenderer_tpu_torch.train", "metrics.jsonl",
+             "loss"),
+            ("vae", "unirenderer_tpu_torch.train.vae", "vae_metrics.jsonl",
+             "vae_loss"))
+    with tempfile.TemporaryDirectory(prefix="clis_") as tmp:
+        procs = {}
+        t = time.perf_counter()
+        for name, module, _, _ in clis:
+            cmd = [sys.executable, "-m", module, "--workdir",
+                   os.path.join(tmp, name), "--config", "small",
+                   "--synthetic", "--steps", "2"]
+            # to files: neither process blocks on a full pipe
+            with open(os.path.join(tmp, f"{name}.out"), "w") as out_f, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as err_f:
+                procs[name] = (cmd, subprocess.Popen(cmd, stdout=out_f,
+                                                     stderr=err_f))
+        try:
+            for name, module, metrics, key in clis:
+                out[name] = cli_result(name, module, metrics, key,
+                                       *procs[name], tmp, t)
+        finally:                          # none outlives the phase
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return out
+
+
+def cli_result(name, module, metrics, key, cmd, proc, tmp, t0):
+    """(f)'s checks of one CLI process (waited for here)."""
+    proc.wait(timeout=300)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"{name}.out")) as f:
+        stdout = f.read()
+    with open(os.path.join(tmp, f"{name}.err")) as f:
+        stderr = f.read()
+    check(proc.returncode == 0, f"{' '.join(cmd[1:])}: exit "
+          f"{proc.returncode}\n{stderr[-2000:]}")
+    lines = stdout.splitlines()
+    dtype = [ln for ln in lines if ln.startswith(f"[{name}] compute")]
+    counts = json.loads(next(
+        ln for ln in lines
+        if ln.startswith(f"[{name}] kernel launches ")
+    ).split("launches ", 1)[1])
+    with open(os.path.join(tmp, name, metrics)) as f:
+        losses = [json.loads(ln) for ln in f]
+    finite = all(math.isfinite(r[key]) for r in losses)
+    f32 = {k: v for k, v in counts.items()
+           if k.endswith("_f32") and v}
+    log(f"  python -m {module} --config small --synthetic --steps 2 "
+        f"(done at {seconds:.1f} s): "
+        f"{dtype[0] if dtype else 'no type'}; losses "
+        f"{[round(r[key], 6) for r in losses]}; f32 launches {f32}")
+    check(bool(dtype) and "float32" in dtype[0], f"{name} CLI did "
+          f"not compute in f32")
+    check(bool(losses) and finite, f"{name} CLI losses not finite")
+    check(counts["groupnorm_silu_f32"] > 0
+          and counts["groupnorm_silu_f32"] == counts["groupnorm_silu"],
+          f"{name} CLI did not run K1 in f32")
+    if name == "train":
+        check(counts["flash_attention_f32"] > 0
+              and counts["flash_attention_backward_f32"] > 0,
+              "train CLI did not run K2 / K2 bwd in f32")
+    return dict(seconds=seconds, losses=losses, launches=counts)
+
+
+def phase_f32(torch, F, record):
+    """Phase 15: (a) the f32 kernels against their plain versions and K1's
+    f32 plans; (b) small() in f32, card against CPU, and the routes; (c)
+    the held-out harness in f32; (d) a train step in f32, card against
+    CPU; (e) the VAE reconstruction eval; (f) the CLIs' default type."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = (mm.allow_tf32, dnn.allow_tf32)
+    mm.allow_tf32 = dnn.allow_tf32 = False    # the plain and library calls
+    out = {}
+    launches = {}
+    cases = f32_cases()
+    try:
+        for part, what, fn in (
+                ("a", f"the f32 kernels against their plain versions: "
+                      f"{len(cases['gn'])} K1, {len(cases['attn'])} K2, "
+                      f"{len(cases['routes'])} K2s / K3, {len(cases['bwd'])} "
+                      f"K2 bwd cases; K1's f32 plans",
+                 lambda: dict(cases=f32_kernel_cases(torch, F, cases),
+                              plans=f32_gn_branches(torch))),
+                ("b", "the trained small() weights in f32, card against "
+                      "CPU; the splash and unet_flash routes",
+                 lambda: f32_small_weights(torch, F, record)),
+                ("c", "the held-out harness in f32 (the f32 main path)",
+                 lambda: f32_held_out(torch, record, cases["checked"])),
+                ("d", "a small() train step in f32, card against CPU",
+                 lambda: f32_train_step(torch, record)),
+                ("e", "the held-out VAE reconstruction eval in f32",
+                 lambda: f32_vae_recon(torch)),
+                ("f", "the train and VAE CLIs at small() with no type given",
+                 lambda: f32_clis(torch))):
+            t = time.perf_counter()
+            log(f"  ({part}) {what}")
+            out[part] = fn()
+            out[part + "_s"] = time.perf_counter() - t
+            log(f"  ({part}) done in {out[part + '_s']:.1f} s")
+    finally:
+        mm.allow_tf32, dnn.allow_tf32 = flags
+    launches["groupnorm_silu_f32"] = out["c"]["f32_launches"][
+        "groupnorm_silu"]
+    launches["flash_attention_f32"] = out["c"]["f32_launches"][
+        "flash_attention"]
+    launches["flash_attention_backward_f32"] = out["d"]["launches"][
+        "flash_attention_backward"]
+    launches["splash_attention_f32"] = out["b"]["route_splash_launches"]
+    launches["attn_kernel_f32"] = out["b"]["route_unet_flash_launches"]
+    return out, launches
+
+
 def kernels_line(results, launches):
     """The result line: per kernel its main-path launches, its worst error
     over all checked cases, and the times and bound of its headline case."""
@@ -3842,6 +4527,16 @@ def main(argv=None) -> int:
             record["distributed"] = phase_distributed(torch, F, cfg,
                                                       checked)
             log(f"phase 14 done in {time.perf_counter() - t:.1f} s")
+        # ---- 15: f32 on the card
+        if 15 in phases:
+            log("phase 15 f32 on the card: the f32 kernels, small() card "
+                "against CPU, the held-out harness, a train step, the VAE "
+                "eval, the CLIs")
+            t = time.perf_counter()
+            record["f32"], f32_launches = phase_f32(torch, F, record)
+            results += record["f32"]["a"]["cases"]
+            launches.update(f32_launches)
+            log(f"phase 15 done in {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1

@@ -28,6 +28,15 @@ the collate on the card to 1e-3 against the same collate on the CPU on
 by an ulp, which can move a silhouette subsample).  The sampling modes
 (encoder reuse, guidance, joint sampling) at small() with the trained
 weights, 3 steps, on the card within 0.05 * max|ref| of f32 on the CPU.
+
+The f32 kernels (f32 in and out) against their plain versions in f32:
+K1 within 2^-16 * max|plain| and a rerun bit-equal; K2, K2s and K3 within
+2^-14 * max|plain| (f32 FMAs summed in another order than the CPU's, and
+exp2 on the special-function unit), K2's log-sum-exp within 2^-16; K2 bwd's
+dQ, dK, dV within 2^-12 * max|plain| and a rerun within the same (no
+atomics: the same bits).  tiny() in f32 on the card against f32 on the
+CPU: the model within 1e-4 * max|ref|, a train step's loss within 1e-4,
+gradient cosine >= 0.99999.
 """
 
 import dataclasses
@@ -171,8 +180,12 @@ def test_groupnorm_kernel_refuses_what_it_does_not_take(card):
     w = torch.ones(20, device=card)
     with pytest.raises(ValueError):                 # C % 8 != 0
         fused_groupnorm_silu(x, w, w, 4, 1e-5, True)
-    with pytest.raises(TypeError):                  # f32 input
-        fused_groupnorm_silu(torch.zeros((1, 4, 4, 32), device=card),
+    with pytest.raises(ValueError):                 # f32, C % 4 != 0
+        fused_groupnorm_silu(torch.zeros((1, 4, 4, 18), device=card),
+                             torch.ones(18, device=card),
+                             torch.ones(18, device=card), 2, 1e-5, True)
+    with pytest.raises(TypeError):                  # f16 input
+        fused_groupnorm_silu(torch.zeros((1, 4, 4, 32), device=card).half(),
                              torch.ones(32, device=card),
                              torch.ones(32, device=card), 8, 1e-5, True)
 
@@ -865,3 +878,213 @@ def test_lpips_and_inception_on_card_match_cpu(card):
     got = inception.make_feature_fn(device=card)(x)
     assert got.shape == (3, 2048)
     assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# f32: the f32 forms of K1, K2 (with its log-sum-exp), K2s, K3 and K2 bwd
+# ---------------------------------------------------------------------------
+
+F32_GN = 2.0 ** -16
+F32_ATTN = 2.0 ** -14
+F32_LSE = 2.0 ** -16
+F32_BWD = 2.0 ** -12
+
+
+def _within(got, want, rel, what):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = rel * want.float().abs().max().item()
+    assert err <= tol, f"{what}: max|diff| {err:.3g} > {tol:.3g}"
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,eps,silu", [
+    ((2, 64, 64, 320), 32, 1e-5, True),     # the flagship headline
+    ((2, 8, 8, 2560), 32, 1e-5, True),      # an up-block concat: 640 vectors
+    ((2, 16, 16, 128), 16, 1e-6, True),     # small()'s UNet
+    ((2, 64, 64, 32), 8, 1e-6, True),       # small()'s VAE
+    ((1, 37, 29, 36), 4, 1e-6, False),      # C % 8 != 0, ragged HW
+])
+def test_groupnorm_kernel_f32(card, shape, groups, eps, silu, param_dtype):
+    g = torch.Generator(device=card).manual_seed(11)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=card) * 2 + 0.5
+    sc = (1 + 0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    bi = (0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    n = fused_groupnorm_silu.launches_f32
+    got = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    again = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    torch.cuda.synchronize()
+    assert fused_groupnorm_silu.launches_f32 == n + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    _within(got, groupnorm_silu_reference(x, sc, bi, groups, eps, silu),
+            F32_GN, "groupnorm f32")
+
+
+def _qkv32(card, b, sq, sk, h, d, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn((b, n, h, d), generator=g, device=card)
+                 for n in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 4096, 4096, 8, 40), (2, 256, 16, 4, 32), (2, 64, 64, 4, 64),
+    (2, 16, 16, 4, 128), (2, 64, 77, 8, 160), (1, 1000, 333, 3, 24),
+])
+def test_flash_attention_kernel_f32(card, b, sq, sk, h, d):
+    q, k, v = _qkv32(card, b, sq, sk, h, d, seed=12)
+    n = flash_attention.launches_f32
+    got = flash_attention(q, k, v)
+    o, lse = flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_f32 == n + 2
+    assert got.dtype == torch.float32 and torch.equal(got, o)
+    _within(got, attention_reference(q, k, v), F32_ATTN, "flash f32")
+    lse_err = (lse - attention_lse_reference(q, k, v)[1]).abs().max().item()
+    assert lse_err <= F32_LSE, f"lse: {lse_err:.3g}"
+
+
+def test_flash_attention_kernel_f32_reads_strided_heads(card):
+    g = torch.Generator(device=card).manual_seed(13)
+    qkv = torch.randn((2, 300, 3, 4, 40), generator=g, device=card)
+    q, k, v = qkv.unbind(2)
+    _within(flash_attention(q, k, v), attention_reference(q, k, v),
+            F32_ATTN, "strided f32")
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 4096, 8, 40), (2, 256, 4, 32)])
+def test_splash_attention_kernel_f32(card, b, s, h, d):
+    q, k, v = _qkv32(card, b, s, s, h, d, seed=14)
+    n = splash_attention.launches_f32
+    got = splash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert splash_attention.launches_f32 == n + 1
+    _within(got, splash_attention_reference(q, k, v), F32_ATTN, "splash f32")
+
+
+@pytest.mark.parametrize("running_max", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 1024, 1024, 8, 80),
+                                         (2, 256, 256, 4, 32)])
+def test_unet_flash_kernel_f32(card, b, sq, sk, h, d, running_max):
+    q, k, v = _qkv32(card, b, sq, sk, h, d, seed=15)
+    n = unet_flash_attention.launches_f32
+    got = unet_flash_attention(q, k, v, running_max=running_max)
+    torch.cuda.synchronize()
+    assert unet_flash_attention.launches_f32 == n + 1
+    _within(got, unet_flash_reference(q, k, v, running_max), F32_ATTN,
+            "unet_flash f32")
+
+
+def _check_backward_f32(q, k, v, do, what):
+    o, lse = flash_attention_with_lse(q, k, v)
+    n = flash_attention_backward.launches_f32
+    got = flash_attention_backward(q, k, v, o, lse, do)
+    again = flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches_f32 == n + 2
+    want = attention_backward_reference(q, k, v, o, lse, do)
+    for name, a, c, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        _within(a, w, F32_BWD, f"{what} {name}")
+        _within(c, a, F32_BWD, f"{what} {name} rerun")
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 4096, 4096, 8, 40), (2, 256, 256, 4, 32), (2, 256, 16, 4, 32),
+    (2, 64, 64, 4, 64), (2, 64, 77, 8, 160), (1, 1000, 333, 3, 24),
+])
+def test_flash_attention_backward_kernel_f32(card, b, sq, sk, h, d):
+    q, k, v = _qkv32(card, b, sq, sk, h, d, seed=16)
+    g = torch.Generator(device=card).manual_seed(17)
+    do = torch.randn((b, sq, h, d), generator=g, device=card)
+    _check_backward_f32(q, k, v, do, f"({b},{sq},{sk},{h},{d}) f32")
+
+
+def test_flash_attention_backward_f32_reads_strided_operands(card):
+    g = torch.Generator(device=card).manual_seed(18)
+    q, k, v = torch.randn((2, 300, 3, 4, 40), generator=g,
+                          device=card).unbind(2)
+    do = torch.randn((2, 300, 2, 4, 40), generator=g, device=card)[:, :, 0]
+    _check_backward_f32(q, k, v, do, "strided f32")
+
+
+def test_flash_attention_autograd_f32_on_card(card):
+    q, k, v = (t.requires_grad_() for t in _qkv32(card, 2, 256, 16, 4, 32,
+                                                  19))
+    n_f = flash_attention.launches_f32
+    n_b = flash_attention_backward.launches_f32
+    flash_attention(q, k, v).square().sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches_f32 == n_f + 1
+    assert flash_attention_backward.launches_f32 == n_b + 1
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+def test_f32_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros((1, 16, 1, 40), device=card)
+    with pytest.raises(TypeError):                  # f16 operands
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):                  # mixed types
+        flash_attention(q, q.bfloat16(), q)
+    wide = torch.zeros((1, 16, 43), device=card)[..., :40].reshape(
+        1, 16, 1, 40)
+    with pytest.raises(ValueError):                 # a stride of 43
+        flash_attention(wide, q, q)
+
+
+def test_tiny_pipeline_f32_on_card_matches_cpu(card):
+    """tiny() in f32: one forward request through the public entry point's
+    noise, card (the f32 kernels) against the CPU (plain versions)."""
+    cfg = config.tiny()
+    pipes = [UniRendererPipeline.create(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32) for dev in (card, "cpu")]
+    from unirenderer_tpu_torch.core.convert import flax_from_module
+    pipes[1].load_flax(**{n: flax_from_module(getattr(pipes[0], n))
+                          for n in ("dual", "vae", "text")})
+    res = cfg.vae.sample_size
+    rng = np.random.default_rng(0)
+    maps = {k: torch.from_numpy(rng.uniform(-1, 1, (2, res, res, 3))
+                                .astype(np.float32))
+            for k in ("normal", "albedo", "spec_light", "diff_light", "env",
+                      "mask")}
+    lat = res // cfg.vae.downscale
+    noise = dict(enc_noise=torch.from_numpy(rng.standard_normal(
+        (12, lat, lat, 4)).astype(np.float32)),
+                 img_noise=torch.from_numpy(rng.standard_normal(
+                     (2, lat, lat, 4)).astype(np.float32)))
+    n_gn = fused_groupnorm_silu.launches_f32
+    n_fa = flash_attention.launches_f32
+    outs = [p.mask2image_3mod_albedo_with_noise(
+        **maps, metallic=torch.tensor([0.1, 0.9]),
+        roughness=torch.tensor([0.5, 0.2]), **noise).cpu() for p in pipes]
+    assert fused_groupnorm_silu.launches_f32 > n_gn
+    assert flash_attention.launches_f32 > n_fa
+    _within(outs[0], outs[1], 1e-3, "tiny() f32 render")
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_tiny_train_step_f32_on_card_matches_cpu(card, tmp_path, inverse):
+    from unirenderer_tpu_torch.core.convert import flax_from_module
+    from unirenderer_tpu_torch.train.compare import (
+        agreement, smooth_batch, trainer_with, step_grads,
+    )
+    from unirenderer_tpu_torch.train.train_step import draw
+    cfg = config.tiny()
+    on_card = trainer_with(cfg, None, card, torch.float32,
+                           str(tmp_path / "card"))
+    weights = {n: flax_from_module(getattr(on_card, n))
+               for n in ("dual", "vae", "text")}
+    on_cpu = trainer_with(cfg, weights, "cpu", torch.float32,
+                          str(tmp_path / "cpu"))
+    batch = smooth_batch(cfg, 2, seed=0)
+    lat = cfg.vae.sample_size // cfg.vae.downscale
+    draws = draw(torch.Generator().manual_seed(1), 2, (lat, lat), 1000,
+                 inverse)
+    n_b = flash_attention_backward.launches_f32
+    r = agreement(step_grads(on_card, batch, draws),
+                  step_grads(on_cpu, batch, draws))
+    assert flash_attention_backward.launches_f32 > n_b
+    assert r["loss_rel_err"] <= 1e-4, r
+    assert r["grad_cos"] >= 0.99999, r
+    assert abs(r["norm_ratio"] - 1) <= 1e-4, r

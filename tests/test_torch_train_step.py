@@ -235,7 +235,8 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 def test_compute_dtype_follows_the_config():
     """TrainConfig.compute_dtype: by default bf16 on the card and f32 on
-    the CPU; the card refuses anything but bf16 (its kernels' type)."""
+    the CPU; the card takes bf16 and f32 (its kernels' types) and refuses
+    any other."""
     from unirenderer_tpu_torch.train.trainer import resolve_compute_dtype
     cpu, card = torch.device("cpu"), torch.device("cuda")
     default = tcfg.tiny().train
@@ -245,5 +246,7 @@ def test_compute_dtype_follows_the_config():
     assert resolve_compute_dtype(bf16, cpu) == torch.bfloat16
     f32 = dataclasses.replace(default, compute_dtype="float32")
     assert resolve_compute_dtype(f32, cpu) == torch.float32
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        resolve_compute_dtype(f32, card)
+    assert resolve_compute_dtype(f32, card) == torch.float32
+    f16 = dataclasses.replace(default, compute_dtype="float16")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        resolve_compute_dtype(f16, card)

@@ -162,8 +162,8 @@ class TrainConfig:
     w_cycle: float = 0.8
     contrastive_temperature: float = 0.1
     # f32 master params; compute in this type.  None: bf16 on the card
-    # (its kernels take nothing else; another type raises there), f32 on
-    # the CPU
+    # (the JAX Trainer's default), f32 on the CPU.  The card's kernels take
+    # "bfloat16" and "float32"; another type raises there
     compute_dtype: Optional[str] = None
     # "float32": grads of the f32 masters; "bfloat16": grads of the
     # compute-type copies, upcast for the update

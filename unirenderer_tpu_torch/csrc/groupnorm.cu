@@ -1,5 +1,6 @@
-// K1: GroupNorm (+ optional SiLU) forward over NHWC bf16 activations, one
-// launch per call.
+// K1: GroupNorm (+ optional SiLU) forward over NHWC activations, bf16 or
+// f32 (a template on the activation type; the output has the input's
+// type, as the JAX kernel writes `x.dtype`), one launch per call.
 //
 // Replaces: unirenderer_tpu/ops/groupnorm.py `_kernel` (reached through
 // `_fused_fwd` and `fused_groupnorm_silu`), the Pallas TPU kernel that holds
@@ -20,19 +21,19 @@
 //     launch; the grid comes from the occupancy calculator and the SM
 //     count), block (b, chunk) owning a contiguous range of the rows of
 //     batch element b;
-//   * each thread walks rows of one 16-byte column vector (8 channels)
-//     with a per-channel Welford update (no E[x^2] - mean^2 anywhere: a
-//     group holds up to a million elements at the VAE's top level, where
-//     the one-pass form loses the variance); the block merges its row
-//     lanes by Chan's formula in a fixed tree, then its channels into
-//     per-group (mean, M2) (equal counts: the mean of the means, M2 plus
-//     n * the squared spread of the means), and writes one partial per
-//     (b, chunk, group);
+//   * each thread walks rows of one 16-byte column vector (8 bf16 or 4
+//     f32 channels) with a per-channel Welford update (no E[x^2] -
+//     mean^2 anywhere: a group holds up to a million elements at the
+//     VAE's top level, where the one-pass form loses the variance); the
+//     block merges its row lanes by Chan's formula in a fixed tree, then
+//     its channels into per-group (mean, M2) (equal counts: the mean of
+//     the means, M2 plus n * the squared spread of the means), and writes
+//     one partial per (b, chunk, group);
 //   * grid barrier; every block merges the partials of its batch element's
 //     groups in a fixed order (a lane per chunk stride, then a fixed tree
 //     over the lanes; no float atomics), so a rerun gives the same bits;
 //   * the block applies (x - mean) * rstd * scale + bias, optional SiLU,
-//     and writes y in bf16 with 16-byte stores.
+//     and writes y in x's type with 16-byte stores.
 // Where the block's rows fit in shared memory (every UNet and attribute
 // encoder shape at batch 2), the first pass keeps them there and the apply
 // reads them back: x is read from device memory once.  Where they do not
@@ -40,8 +41,10 @@
 // for all but the largest.  The branch is chosen from the shape before the
 // launch; both are the same kernel.
 // scale and bias are read in their own type (bf16 or f32, a template).
-// Any C that is a multiple of 8 and of G works, so C/G need not be a power
-// of two (10, 20, 40, 60 at flagship widths; 4 in the VAE).
+// Any C that is a multiple of the vector width (8 bf16, 4 f32) and of G
+// works, so C/G need not be a power of two (10, 20, 40, 60 at flagship
+// widths; 4 in the VAE).  The f32 form does the same Welford / Chan merges
+// in the same fixed order, over 4-channel vectors.
 //
 // Interface: plain C, no PyTorch headers.  The launcher allocates nothing
 // (the caller passes the workspace: one float2 per (block, group), fully
@@ -57,13 +60,12 @@
 
 namespace cg = cooperative_groups;
 
+extern "C" int gn_max_blocks(void);
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kVec = 8;            // bf16 channels per 16-byte vector
-constexpr int kThreads = 512;      // most threads a block
-constexpr int kMinBlocks = 2;      // per SM: <= 64 registers a thread
 constexpr int kSlots = 64;         // launch plans kept
 
 __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
@@ -88,12 +90,33 @@ __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void welford8(float n_inv, const uint4& raw,
-                                         float (&mean)[kVec],
-                                         float (&m2)[kVec]) {
+// The activation types: channels per 16-byte vector.  A block has at
+// most 4096 / kN threads (one column vector each across a 4096-channel
+// row: 512 in bf16, 1024 in f32), and at least 2048 / that of them share
+// an SM, so either way a thread has at most 64 registers.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  static constexpr int kThreads = 512;
+  static constexpr int kMinBlocks = 2;
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static constexpr int kThreads = 1024;
+  static constexpr int kMinBlocks = 1;
+};
+
+// One Welford step over a 16-byte vector: 8 bf16 channels, taken in pairs
+__device__ __forceinline__ void welford(float n_inv, const uint4& raw,
+                                        float (&mean)[8], float (&m2)[8]) {
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
+  for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h2[i]);
     float d = f.x - mean[2 * i];
     mean[2 * i] += d * n_inv;
@@ -104,19 +127,34 @@ __device__ __forceinline__ void welford8(float n_inv, const uint4& raw,
   }
 }
 
-// Thread t works column vector t % V (V = C / 8) on row lane t / V; RL
+// ... or 4 f32 channels
+__device__ __forceinline__ void welford(float n_inv, const uint4& raw,
+                                        float (&mean)[4], float (&m2)[4]) {
+  const float f[4] = {__uint_as_float(raw.x), __uint_as_float(raw.y),
+                      __uint_as_float(raw.z), __uint_as_float(raw.w)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d = f[i] - mean[i];
+    mean[i] += d * n_inv;
+    m2[i] += d * (f[i] - mean[i]);
+  }
+}
+
+// Thread t works column vector t % V (V = C / kN) on row lane t / V; RL
 // row lanes, blockDim.x = V * RL rounded up to whole warps (the extra
 // threads only join the warp reductions).  grid = batch * n_chunks blocks,
 // block (b, chunk) at b * n_chunks + chunk.
-// Shared memory: [scratch: 17 floats a thread][group stats: 2 * groups
-// floats, 16-byte aligned][x cache: cached ? rows_per_chunk * C bf16].
-template <typename P>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
-                const P* __restrict__ bias, bf16* __restrict__ y,
+// Shared memory: [scratch: 1 + 2 kN floats a thread][group stats:
+// 2 * groups floats, 16-byte aligned][x cache: cached ? rows_per_chunk * C
+// of T].
+template <typename T, typename P>
+__global__ void __launch_bounds__(Vec<T>::kThreads, Vec<T>::kMinBlocks)
+gn_fused_kernel(const T* __restrict__ x, const P* __restrict__ scale,
+                const P* __restrict__ bias, T* __restrict__ y,
                 float2* __restrict__ part, int hw, int c, int groups,
                 int rl, int rows_per_chunk, int n_chunks,
                 int scratch_floats, float eps, int silu, int cached) {
+  constexpr int kVec = Vec<T>::kN;
   extern __shared__ float4 smem4[];
   float* scratch = reinterpret_cast<float*>(smem4);
   float2* gstat = reinterpret_cast<float2*>(scratch + scratch_floats);
@@ -163,7 +201,7 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
           cache[(r + u * rl - r0) * pitch + vc] = raw[u];
         }
         n += 1.f;
-        welford8(__frcp_rn(n), raw[u], mean, m2);
+        welford(__frcp_rn(n), raw[u], mean, m2);
       }
     }
   }
@@ -311,17 +349,27 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
                    cached ? cache_ext : x_ext, "K1 x (apply)");
     uint4 raw = cached ? cache[(r - r0) * pitch + vc]
                        : xb[(size_t)r * pitch + vc];
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+    if constexpr (kVec == 8) {         // bf16, in pairs
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int i = 0; i < kVec / 2; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      float v0 = (f.x - mu[2 * i]) * a[2 * i] + sh[2 * i];
-      float v1 = (f.y - mu[2 * i + 1]) * a[2 * i + 1] + sh[2 * i + 1];
-      if (silu) {
-        v0 = __fdividef(v0, 1.f + __expf(-v0));
-        v1 = __fdividef(v1, 1.f + __expf(-v1));
+      for (int i = 0; i < kVec / 2; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        float v0 = (f.x - mu[2 * i]) * a[2 * i] + sh[2 * i];
+        float v1 = (f.y - mu[2 * i + 1]) * a[2 * i + 1] + sh[2 * i + 1];
+        if (silu) {
+          v0 = __fdividef(v0, 1.f + __expf(-v0));
+          v1 = __fdividef(v1, 1.f + __expf(-v1));
+        }
+        h2[i] = __floats2bfloat162_rn(v0, v1);
       }
-      h2[i] = __floats2bfloat162_rn(v0, v1);
+    } else {                           // f32
+      float* f = reinterpret_cast<float*>(&raw);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        float v = (f[i] - mu[i]) * a[i] + sh[i];
+        if (silu) v = __fdividef(v, 1.f + __expf(-v));
+        f[i] = v;
+      }
     }
     UR_CHECK_INDEX(x_off + (long long)r * pitch + vc, x_ext, "K1 y");
     yb[(size_t)r * pitch + vc] = raw;
@@ -329,7 +377,7 @@ gn_fused_kernel(const bf16* __restrict__ x, const P* __restrict__ scale,
 }
 
 struct Plan {
-  int batch, hw, c, groups, dtype;      // the key
+  int batch, hw, c, groups, dtype;      // the key (dtype: kind() below)
   int nv, rl, threads, rows_per_chunk, n_chunks, scratch_floats, cached;
   size_t smem;
 };
@@ -338,35 +386,45 @@ Plan g_plans[kSlots];
 int g_n_plans = 0;
 int g_sms = 0, g_max_smem = 0;
 
-template <typename P>
+// The plan key's type code: bit 0 bf16 parameters, bit 1 f32 activations.
+int kind(int x_f32, int param_bf16) {
+  return (x_f32 ? 2 : 0) | (param_bf16 ? 1 : 0);
+}
+
+template <typename T, typename P>
 int occupancy(int threads, size_t smem) {
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, gn_fused_kernel<P>, threads, smem) != cudaSuccess) {
+          &n, gn_fused_kernel<T, P>, threads, smem) != cudaSuccess) {
     return 0;
   }
   return n;
 }
 
+template <typename T, typename P>
+cudaError_t allow_max_smem() {
+  return cudaFuncSetAttribute(gn_fused_kernel<T, P>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              g_max_smem);
+}
+
 // The launch plan of a shape: the cached branch with as many blocks an SM
-// as fit (x's rows in shared memory), else the re-reading branch over every
-// block the card holds at once.  0 on success.
-template <typename P>
+// as fit (x's rows in shared memory, in bytes of T), else the re-reading
+// branch over every block the card holds at once.  0 on success.
+template <typename T, typename P>
 int make_plan(Plan& p) {
+  constexpr int kVec = Vec<T>::kN;
+  constexpr int kThreads = Vec<T>::kThreads;
   if (g_sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
     cudaDeviceGetAttribute(&g_max_smem,
                            cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaError_t e = cudaFuncSetAttribute(
-        gn_fused_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        g_max_smem);
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(gn_fused_kernel<bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               g_max_smem);
-    }
+    cudaError_t e = allow_max_smem<bf16, float>();
+    if (e == cudaSuccess) e = allow_max_smem<bf16, bf16>();
+    if (e == cudaSuccess) e = allow_max_smem<float, float>();
+    if (e == cudaSuccess) e = allow_max_smem<float, bf16>();
     if (e != cudaSuccess) return (int)e;
   }
   p.nv = p.c / kVec;
@@ -390,13 +448,13 @@ int make_plan(Plan& p) {
     p.rows_per_chunk = (p.hw + chunks - 1) / chunks;
     p.n_chunks = (p.hw + p.rows_per_chunk - 1) / p.rows_per_chunk;
   };
-  const int occ0 = occupancy<P>(threads, fixed16);
+  const int occ0 = occupancy<T, P>(threads, fixed16);
   for (int per_sm = 1; per_sm <= occ0; ++per_sm) {
     split(per_sm * g_sms);
     const size_t smem =
-        fixed16 + (size_t)p.rows_per_chunk * p.c * sizeof(bf16);
+        fixed16 + (size_t)p.rows_per_chunk * p.c * sizeof(T);
     if (smem <= (size_t)g_max_smem &&
-        occupancy<P>(threads, smem) * g_sms >= p.batch * p.n_chunks) {
+        occupancy<T, P>(threads, smem) * g_sms >= p.batch * p.n_chunks) {
       p.cached = 1;
       p.smem = smem;
       return 0;
@@ -426,11 +484,58 @@ const Plan* plan_for(int batch, int hw, int c, int groups, int dtype,
   p.c = c;
   p.groups = groups;
   p.dtype = dtype;
-  *err = dtype ? make_plan<bf16>(p) : make_plan<float>(p);
+  switch (dtype) {
+    case 0: *err = make_plan<bf16, float>(p); break;
+    case 1: *err = make_plan<bf16, bf16>(p); break;
+    case 2: *err = make_plan<float, float>(p); break;
+    default: *err = make_plan<float, bf16>(p); break;
+  }
   if (*err) return nullptr;
   Plan& slot = g_plans[g_n_plans < kSlots ? g_n_plans++ : batch % kSlots];
   slot = p;
   return &slot;
+}
+
+template <typename T>
+int forward(const void* x, const void* scale, const void* bias, void* y,
+            void* ws, int batch, int hw, int c, int groups, float eps,
+            int silu, int param_bf16, void* stream) {
+  constexpr int kVec = Vec<T>::kN;
+  if (c % kVec != 0 || c % groups != 0 || c / kVec > Vec<T>::kThreads ||
+      batch <= 0 || hw <= 0 || groups <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int err = 0;
+  const Plan* p = plan_for(batch, hw, c, groups,
+                           kind(sizeof(T) == 4, param_bf16), &err);
+  if (p == nullptr) return err;
+#ifdef UNIRENDER_INDEX_CHECK
+  // the grid's partials must fit the workspace the caller sized
+  if (batch * p->n_chunks > gn_max_blocks()) {
+    return (int)cudaErrorInvalidValue;
+  }
+#endif
+  const T* xp = reinterpret_cast<const T*>(x);
+  T* yp = reinterpret_cast<T*>(y);
+  float2* part = reinterpret_cast<float2*>(ws);
+  int hw_ = hw, c_ = c, g_ = groups, rl = p->rl, rpc = p->rows_per_chunk,
+      nch = p->n_chunks, sf = p->scratch_floats, silu_ = silu,
+      cached = p->cached;
+  float eps_ = eps;
+  const void* sp = scale;
+  const void* bp = bias;
+  void* args[] = {(void*)&xp, (void*)&sp,  (void*)&bp,  (void*)&yp,
+                  (void*)&part, (void*)&hw_, (void*)&c_, (void*)&g_,
+                  (void*)&rl,   (void*)&rpc, (void*)&nch, (void*)&sf,
+                  (void*)&eps_, (void*)&silu_, (void*)&cached};
+  const dim3 block(p->threads);
+  const dim3 grid(batch * p->n_chunks);
+  const void* fn = param_bf16 ? (const void*)gn_fused_kernel<T, bf16>
+                              : (const void*)gn_fused_kernel<T, float>;
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, grid, block, args, p->smem, reinterpret_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -451,40 +556,40 @@ int gn_max_blocks(void) {
 int gn_silu_forward(const void* x, const void* scale, const void* bias,
                     void* y, void* ws, int batch, int hw, int c, int groups,
                     float eps, int silu, int param_bf16, void* stream) {
-  if (c % kVec != 0 || c % groups != 0 || c / kVec > kThreads ||
-      batch <= 0 || hw <= 0 || groups <= 0) {
+  return forward<bf16>(x, scale, bias, y, ws, batch, hw, c, groups, eps,
+                       silu, param_bf16, stream);
+}
+
+// The same over f32 x and y (c a multiple of 4, up to 4096).
+int gn_silu_forward_f32(const void* x, const void* scale, const void* bias,
+                        void* y, void* ws, int batch, int hw, int c,
+                        int groups, float eps, int silu, int param_bf16,
+                        void* stream) {
+  return forward<float>(x, scale, bias, y, ws, batch, hw, c, groups, eps,
+                        silu, param_bf16, stream);
+}
+
+// The launch plan of a shape without launching: out[0] 1 for the branch
+// that keeps x's rows in shared memory, 0 for the re-reading one; out[1]
+// blocks (batch * chunks); out[2] rows a chunk; out[3] threads a block;
+// out[4] dynamic shared memory bytes.  Returns a CUDA error code.
+int gn_plan(int batch, int hw, int c, int groups, int x_f32, int param_bf16,
+            int* out) {
+  const int vec = x_f32 ? Vec<float>::kN : Vec<bf16>::kN;
+  if (c % vec != 0 || c % groups != 0 || c > 4096 || batch <= 0 ||
+      hw <= 0 || groups <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   int err = 0;
-  const Plan* p = plan_for(batch, hw, c, groups, param_bf16 ? 1 : 0, &err);
+  const Plan* p = plan_for(batch, hw, c, groups, kind(x_f32, param_bf16),
+                           &err);
   if (p == nullptr) return err;
-#ifdef UNIRENDER_INDEX_CHECK
-  // the grid's partials must fit the workspace the caller sized
-  if (batch * p->n_chunks > gn_max_blocks()) {
-    return (int)cudaErrorInvalidValue;
-  }
-#endif
-  const bf16* xp = reinterpret_cast<const bf16*>(x);
-  bf16* yp = reinterpret_cast<bf16*>(y);
-  float2* part = reinterpret_cast<float2*>(ws);
-  int hw_ = hw, c_ = c, g_ = groups, rl = p->rl, rpc = p->rows_per_chunk,
-      nch = p->n_chunks, sf = p->scratch_floats, silu_ = silu,
-      cached = p->cached;
-  float eps_ = eps;
-  const void* sp = scale;
-  const void* bp = bias;
-  void* args[] = {(void*)&xp, (void*)&sp,  (void*)&bp,  (void*)&yp,
-                  (void*)&part, (void*)&hw_, (void*)&c_, (void*)&g_,
-                  (void*)&rl,   (void*)&rpc, (void*)&nch, (void*)&sf,
-                  (void*)&eps_, (void*)&silu_, (void*)&cached};
-  const dim3 block(p->threads);
-  const dim3 grid(batch * p->n_chunks);
-  const void* fn = param_bf16 ? (const void*)gn_fused_kernel<bf16>
-                              : (const void*)gn_fused_kernel<float>;
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      fn, grid, block, args, p->smem, reinterpret_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  out[0] = p->cached;
+  out[1] = batch * p->n_chunks;
+  out[2] = p->rows_per_chunk;
+  out[3] = p->threads;
+  out[4] = (int)p->smem;
+  return 0;
 }
 
 }  // extern "C"

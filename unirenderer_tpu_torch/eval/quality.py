@@ -5,7 +5,7 @@ also inverse-render the rendered image and score the maps it gives back
 (per-map PSNR, the normal angle, the masked metallic/roughness error).
 
     python -m unirenderer_tpu_torch.eval.quality [--device cuda]
-        [--dtype bfloat16] [--n 32] [--steps 20] [--noise-seeds 1000]
+        [--dtype float32] [--n 32] [--steps 20] [--noise-seeds 1000]
         [--inverse] [--ensemble 1] [--lpips] [--fid]
         [--lpips-weights VGG16_FEATURES.pt LPIPS_VGG.pt]
         [--inception-weights INCEPTION_V3.pt]
@@ -19,7 +19,10 @@ with (`artifacts/r05/text_small.npz`, written by
 scores per noise seed.  `--lpips` / `--fid` add LPIPS and FID of the
 forward images against the rendered ones (`perceptual_scores`, f32 on the
 device); without weight files the backbones are seeded random ones and
-the report says `lpips_calibrated` / `fid_calibrated` false.
+the report says `lpips_calibrated` / `fid_calibrated` false.  The harness
+computes in f32 by default on either device, as tools/eval_quality.py
+scores small(): on the card the f32 kernels, with cuDNN and cuBLAS
+without TF32; `--dtype bfloat16` runs the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -259,8 +262,8 @@ def main(argv=None):
     ap.add_argument("--device",
                     help="default: $UNIRENDER_PLATFORM, else cuda")
     ap.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
-                    help="bfloat16 on the card (the kernels take nothing "
-                         "else); float32 by default on the CPU")
+                    help="compute type; default float32, as "
+                         "tools/eval_quality.py scores small()")
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--noise-seeds", default="1000")
@@ -281,12 +284,13 @@ def main(argv=None):
                     help="torchvision inception_v3 state_dict; a random "
                          "backbone otherwise")
     args = ap.parse_args(argv)
-    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    from unirenderer_tpu_torch.utils.runtime import (
+        disable_tf32, setup_runtime,
+    )
     args.device = str(setup_runtime(args.device))
-    on_cpu = torch.device(args.device).type == "cpu"
-    args.dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
-    if args.dtype != "bfloat16" and not on_cpu:
-        ap.error("the card's kernels take bfloat16 only")
+    args.dtype = args.dtype or "float32"
+    if args.dtype == "float32":
+        disable_tf32()
     pipe = small_trained_pipeline(args.device, getattr(torch, args.dtype))
     ensemble = args.ensemble or pipe.cfg.sampler.ensemble
     out = held_out_scores(pipe, args.n, args.steps,

@@ -13,8 +13,14 @@ scores with the previous tile's update; S and Sk must divide the blocks
 ValueError, as the JAX kernel does.  On a CUDA tensor the wrapper launches
 the hand-written kernel of `csrc/attn_kernel.cu` (bf16, D a multiple of 8
 up to 128), which stages Q as bf16(q * bf16(factor)) itself (the bits of
-`prescale_q`): one launch per call, nothing else.  It raises on anything
-the kernel does not take; on a CPU tensor it runs the plain version below.
+`prescale_q`): one launch per call, nothing else.  f32 operands go to the
+unet_flash entry point of the f32 attention kernel
+(`csrc/flash_attention_f32.cu`): Q staged as f32(q * f32(factor)), the
+factor in q's type as JAX rounds it (not the bf16 one), exp2 with or
+without the running max; it has one schedule, so `pipelined` (the order
+of the work, not its result) changes nothing there.  It raises on
+anything the kernels do not take; on a CPU tensor it runs the plain
+version below.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 
 from unirenderer_tpu_torch.ops import _build
 from unirenderer_tpu_torch.ops.flash_attention import (
-    check_operands, packed_strides, prescale_factor, prescale_q,
+    check_operands, count_launch, f32_lib, packed_strides, prescale_factor,
+    prescale_q,
 )
 
 MAX_HEAD_DIM = 128
@@ -85,16 +92,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pipelined: bool, running_max: bool) -> torch.Tensor:
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = packed_strides(q, k, v, o)
-    rc = _lib().unet_flash_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, h, sq, sk, d, ctypes.addressof(strides),
-        qscale(d), int(pipelined), int(running_max),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    packed = packed_strides(q, k, v, o)      # alive until the launch
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, h, sq, sk, d, ctypes.addressof(packed))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32:
+        rc = f32_lib().unet_flash_forward_f32(
+            *args, prescale_factor(torch.float32, _factor(d)),
+            int(running_max), stream)
+    else:
+        rc = _lib().unet_flash_forward(*args, qscale(d), int(pipelined),
+                                       int(running_max), stream)
     if rc != 0:
         raise RuntimeError(f"unet_flash attention launch failed: CUDA error "
                            f"{rc}")
-    unet_flash_attention.launches += 1
+    count_launch(unet_flash_attention, q.dtype)
     return o
 
 
@@ -114,7 +126,9 @@ def unet_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, pipelined, running_max)
 
 
-# kernel launches so far (the CUDA branch only), and every
-# (q shape, k shape) the wrapper has been called with
+# kernel launches so far (the CUDA branch only; `launches_f32`: those of
+# the f32 kernel alone), and every (q shape, k shape) the wrapper has been
+# called with
 unet_flash_attention.launches = 0
+unet_flash_attention.launches_f32 = 0
 unet_flash_attention.seen = set()

@@ -8,8 +8,12 @@ other attention shapes to (`models/layers.py` `dmajor_attention`).  On a
 CUDA tensor the wrapper launches the hand-written kernel of
 `csrc/flash_attention.cu` for every shape the UNet sees (self and cross,
 D a multiple of 8 up to 160) and raises on anything it does not take; on a
-CPU tensor it runs the plain PyTorch version below.  It serves every
-attention call under the default route (`models/layers.py` `attention`);
+CPU tensor it runs the plain PyTorch version below.  f32 operands go to
+the f32 kernels of `csrc/flash_attention_f32.cu` (forward) and
+`csrc/flash_attention_bwd_f32.cu` (backward): the JAX library kernel
+takes operands of the input type.  bf16 and f32 are the types the kernels
+take; f16 and f64 raise (no JAX entry point computes in them).  It serves
+every attention call under the default route (`models/layers.py` `attention`);
 the splash and unet_flash routes (`ops/splash_attention.py`,
 `ops/attn_kernel.py`) take the tileable self-attention shapes when
 selected, and only without a gradient.
@@ -33,6 +37,9 @@ import torch
 from unirenderer_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 160
+# the operand types the kernels take, and the element strides (16 bytes)
+# their 16-byte copies need
+ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def tileable(sq: int, sk: int, d: int) -> bool:
@@ -117,25 +124,58 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"attention kernels take bfloat16, {name} is "
-                        f"{t.dtype}")
+def f32_lib() -> ctypes.CDLL:
+    """The f32 forward of csrc/flash_attention_f32.cu: K2's entry points
+    and those of the splash (K2s) and unet_flash (K3) routes."""
+    lib = _build.load("flash_attention_f32")
+    if lib.flash_attn_forward_f32.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attn_forward_f32.argtypes = [p] * 4 + [i] * 5 + [p, f, p]
+        lib.flash_attn_forward_lse_f32.argtypes = ([p] * 5 + [i] * 5
+                                                   + [p, f, p])
+        lib.splash_attn_forward_f32.argtypes = [p] * 4 + [i] * 5 + [p, f, p]
+        lib.unet_flash_forward_f32.argtypes = ([p] * 4 + [i] * 5
+                                               + [p, f, i, p])
+        for fn in (lib.flash_attn_forward_f32, lib.flash_attn_forward_lse_f32,
+                   lib.splash_attn_forward_f32, lib.unet_flash_forward_f32):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_f32_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_f32")
+    if lib.flash_attn_backward_f32.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attn_backward_f32.argtypes = ([p] * 10 + [i] * 5
+                                                + [p, ctypes.c_float, p])
+        lib.flash_attn_backward_f32.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"the attention operands share one type: {name} is "
+                        f"{t.dtype}, q is {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+    align = ALIGN[dtype]
+    if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
             or t.data_ptr() % 16 != 0:
         raise ValueError(f"{name} needs a unit stride on D, other strides "
-                         f"a multiple of 8 and 16-byte alignment, got "
-                         f"strides {t.stride()}")
+                         f"a multiple of {align} ({dtype}) and 16-byte "
+                         f"alignment, got strides {t.stride()}")
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    max_head_dim: int):
-    """What every attention kernel of csrc/ takes: bf16 (B, S, H, D)
-    operands on one device, D a multiple of 8 up to `max_head_dim`, unit
-    stride on D, other strides multiples of 8.  Returns (b, sq, sk, h, d)."""
+    """What every attention kernel of csrc/ takes: (B, S, H, D) operands of
+    one type, bf16 or f32, on one device, D a multiple of 8 up to
+    `max_head_dim`, unit stride on D, other strides multiples of 16 bytes
+    (8 bf16, 4 f32 elements).  Returns (b, sq, sk, h, d)."""
+    if q.dtype not in ALIGN:
+        raise TypeError(f"attention kernels take bfloat16 or float32, q is "
+                        f"{q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
     b, sq, h, d = q.shape
@@ -143,9 +183,9 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 != 0 or d > max_head_dim or b * h > 65535:
         raise ValueError(f"the kernel takes D a multiple of 8 up to "
                          f"{max_head_dim} and B*H <= 65535, got {q.shape}")
-    _check("q", q, (b, sq, h, d))
-    _check("k", k, (b, sk, h, d))
-    _check("v", v, (b, sk, h, d))
+    _check("q", q, (b, sq, h, d), q.dtype)
+    _check("k", k, (b, sk, h, d), q.dtype)
+    _check("v", v, (b, sk, h, d), q.dtype)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     return b, sq, sk, h, d
@@ -171,26 +211,46 @@ def packed_strides(*tensors: torch.Tensor):
         *(t.stride(i) for t in tensors for i in range(3)))
 
 
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One kernel launch of `wrapper` in `dtype`: `.launches` counts every
+    launch, `.launches_f32` those of the f32 kernels alone."""
+    wrapper.launches += 1
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             with_lse: bool = False):
-    """The forward kernel -> o, or (o, lse) with `with_lse`."""
+    """The forward kernel (bf16 or f32, by q's type) -> o, or (o, lse) with
+    `with_lse`."""
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = packed_strides(q, k, v, o)
+    packed = packed_strides(q, k, v, o)      # alive until the launch
+    strides = ctypes.addressof(packed)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    lse = None
     if with_lse:
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        # the f32 scores scaled by f32 sm_scale, as the library kernel does
+        scale = prescale_factor(torch.float32, 1.0 / math.sqrt(d))
+        if with_lse:
+            rc = f32_lib().flash_attn_forward_lse_f32(
+                *ptrs, lse.data_ptr(), b, h, sq, sk, d, strides, scale,
+                stream)
+        else:
+            rc = f32_lib().flash_attn_forward_f32(
+                *ptrs, b, h, sq, sk, d, strides, scale, stream)
+    elif with_lse:
         rc = _lib().flash_attn_forward_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, sq, sk, d, ctypes.addressof(strides),
-            stream)
+            *ptrs, lse.data_ptr(), b, h, sq, sk, d, strides, stream)
     else:
-        rc = _lib().flash_attn_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, sq, sk, d, ctypes.addressof(strides), stream)
+        rc = _lib().flash_attn_forward(*ptrs, b, h, sq, sk, d, strides,
+                                       stream)
     if rc != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    count_launch(flash_attention, q.dtype)
     return (o, lse) if with_lse else o
 
 
@@ -208,8 +268,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_backward(q, k, v, o, lse, do):
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
-    _check("o", o, (b, sq, h, d))
-    _check("do", do, (b, sq, h, d))
+    _check("o", o, (b, sq, h, d), q.dtype)
+    _check("do", do, (b, sq, h, d), q.dtype)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous f32 ({b}, {h}, {sq}), "
@@ -219,23 +279,30 @@ def _launch_backward(q, k, v, o, lse, do):
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
-    # workspaces: Delta and the f32 sums of dQ (and of dK, dV when the
-    # kernel splits the query tiles)
+    # workspaces: Delta, and in bf16 the f32 sums of dQ (and of dK, dV
+    # when the kernel splits the query tiles)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, sq), **f32)
-    dq_acc = torch.empty((b * h, sq, d), **f32)
-    dkv_acc = torch.empty((2, b * h, sk, d), **f32)
-    strides = packed_strides(q, k, v, o, do, dq, dk, dv)
-    rc = _bwd_lib().flash_attn_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        dkv_acc.data_ptr(), b, h, sq, sk, d, ctypes.addressof(strides),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    packed = packed_strides(q, k, v, o, do, dq, dk, dv)
+    strides = ctypes.addressof(packed)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr())
+    if q.dtype == torch.float32:
+        rc = _bwd_f32_lib().flash_attn_backward_f32(
+            *ptrs, b, h, sq, sk, d, strides,
+            prescale_factor(torch.float32, 1.0 / math.sqrt(d)), stream)
+    else:
+        dq_acc = torch.empty((b * h, sq, d), **f32)
+        dkv_acc = torch.empty((2, b * h, sk, d), **f32)
+        rc = _bwd_lib().flash_attn_backward(
+            *ptrs, dq_acc.data_ptr(), dkv_acc.data_ptr(), b, h, sq, sk, d,
+            strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {rc}")
-    flash_attention_backward.launches += 1
+    count_launch(flash_attention_backward, q.dtype)
     return dq, dk, dv
 
 
@@ -287,10 +354,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # forward kernel launches so far (the CUDA branch only, with or without the
-# log-sum-exp), and every (q shape, k shape) the wrapper has been called with
+# log-sum-exp; `launches_f32`: those of the f32 kernel alone), and every
+# (q shape, k shape) the wrapper has been called with
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
 flash_attention.seen = set()
 # backward kernel launches (one per call: the kernels of
-# csrc/flash_attention_bwd.cu) and the (q shape, k shape) of every call
+# csrc/flash_attention_bwd.cu, or of flash_attention_bwd_f32.cu) and the
+# (q shape, k shape) of every call
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_f32 = 0
 flash_attention_backward.seen = set()

@@ -2,10 +2,12 @@
 
 Counterpart of `unirenderer_tpu/ops/groupnorm.py` (`fused_groupnorm_silu`,
 whose Pallas kernel is `_kernel` via `_fused_fwd`).  On a CUDA tensor the
-wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (x in bf16;
-scale and bias in bf16 or f32, read in their own type: the wrapper casts
-nothing) once per call, and raises on anything it does not take; on a CPU
-tensor it runs the plain PyTorch version below.
+wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (x in bf16
+or f32, y in x's type, as the JAX kernel writes `x.dtype`; scale and bias
+in bf16 or f32, read in their own type: the wrapper casts nothing) once
+per call, and raises on anything it does not take (f16 and f64 included:
+no JAX entry point computes in them); on a CPU tensor it runs the plain
+PyTorch version below.
 
 Under autograd the call is a `torch.autograd.Function` whose backward is
 autograd through the plain version, recomputed from the saved x, scale
@@ -25,6 +27,11 @@ from unirenderer_tpu_torch.ops import _build
 
 # the parameter types the kernel reads, and its flag for each
 _PARAM_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the activation types it reads and writes, and their channels per 16-byte
+# vector (C must be a multiple); a block has at most 4096 / vec threads, one
+# column vector each, so C is at most 4096
+VEC = {torch.bfloat16: 8, torch.float32: 4}
+MAX_CHANNELS = 4096
 
 
 def groupnorm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -42,13 +49,13 @@ def groupnorm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def merge_span(hw: int, c: int, groups: int) -> int:
+def merge_span(hw: int, c: int, groups: int, vec: int = 8) -> int:
     """Lanes the kernel gives each group when it merges the chunks: the
-    largest power of two up to 32 with groups * span <= its threads (C / 8
-    column vectors times min(512 // (C / 8), HW) row lanes, in whole
-    warps)."""
-    nv = c // 8
-    threads = -(-nv * min(512 // nv, hw) // 32) * 32
+    largest power of two up to 32 with groups * span <= its threads (C /
+    vec column vectors, `vec` = `VEC[x.dtype]`, times min(4096 / vec //
+    (C / vec), HW) row lanes, in whole warps)."""
+    nv = c // vec
+    threads = -(-nv * min(MAX_CHANNELS // vec // nv, hw) // 32) * 32
     span = 32
     while span > 1 and groups * span > threads:
         span //= 2
@@ -116,9 +123,12 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gn_max_blocks.argtypes = []
         lib.gn_max_blocks.restype = i
-        lib.gn_silu_forward.argtypes = [p, p, p, p, p, i, i, i, i,
-                                        ctypes.c_float, i, i, p]
-        lib.gn_silu_forward.restype = ctypes.c_int
+        for fn in (lib.gn_silu_forward, lib.gn_silu_forward_f32):
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i,
+                           p]
+            fn.restype = ctypes.c_int
+        lib.gn_plan.argtypes = [i, i, i, i, i, i, p]
+        lib.gn_plan.restype = ctypes.c_int
     return lib
 
 
@@ -128,15 +138,39 @@ def _max_blocks(device_index: int) -> int:
         return _lib().gn_max_blocks()
 
 
+def plan(shape, groups: int, dtype: torch.dtype = torch.bfloat16,
+         param_dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """The kernel's launch plan for x of `shape` and `dtype` on the card,
+    without a launch: `cached` (True: x's rows kept in shared memory and
+    read from device memory once; False: the apply reads them again),
+    `blocks`, `rows_per_block`, `threads`, `smem_bytes`."""
+    shape = tuple(shape)
+    c = shape[-1]
+    device = torch.device(device if device is not None else "cuda")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = _lib().gn_plan(
+            shape[0], math.prod(shape[1:-1]), c, groups,
+            int(dtype == torch.float32), _PARAM_TYPES[param_dtype],
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"groupnorm plan for {shape} failed: CUDA error "
+                           f"{rc}")
+    return dict(cached=bool(out[0]), blocks=out[1], rows_per_block=out[2],
+                threads=out[3], smem_bytes=out[4])
+
+
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             groups: int, eps: float, silu: bool) -> torch.Tensor:
     c = x.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"groupnorm kernel takes bfloat16, got {x.dtype}")
-    if x.dim() < 2 or c % 8 != 0 or c % groups != 0 or c > 8192:
-        raise ValueError(f"groupnorm kernel needs C % 8 == 0 and "
-                         f"C % groups == 0, got shape {tuple(x.shape)}, "
-                         f"groups={groups}")
+    if x.dtype not in VEC:
+        raise TypeError(f"groupnorm kernel takes bfloat16 or float32, got "
+                        f"{x.dtype}")
+    vec = VEC[x.dtype]
+    if x.dim() < 2 or c % vec != 0 or c % groups != 0 or c > MAX_CHANNELS:
+        raise ValueError(f"groupnorm kernel needs C % {vec} == 0 for "
+                         f"{x.dtype} and C % groups == 0, got shape "
+                         f"{tuple(x.shape)}, groups={groups}")
     if not x.is_contiguous() or x.data_ptr() % 16 != 0:
         raise ValueError("groupnorm kernel needs a contiguous, 16-byte "
                          "aligned input")
@@ -156,7 +190,9 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ws = torch.empty(_max_blocks(x.device.index) * groups * 8,
                      dtype=torch.uint8, device=x.device)
     y = torch.empty_like(x)
-    rc = lib.gn_silu_forward(
+    fn = lib.gn_silu_forward_f32 if x.dtype == torch.float32 \
+        else lib.gn_silu_forward
+    rc = fn(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         ws.data_ptr(), batch, hw, c, groups, float(eps), int(bool(silu)),
         _PARAM_TYPES[scale.dtype],
@@ -164,6 +200,8 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: CUDA error {rc}")
     fused_groupnorm_silu.launches += 1
+    if x.dtype == torch.float32:
+        fused_groupnorm_silu.launches_f32 += 1
     return y
 
 
@@ -213,7 +251,9 @@ def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
     return _forward(x, scale, bias, groups, eps, silu)
 
 
-# kernel launches so far (the CUDA branch only), and every
-# (shape, groups, eps, silu) the wrapper has been called with
+# kernel launches so far (the CUDA branch only; `launches_f32`: those of
+# the f32 form alone), and every (shape, groups, eps, silu) the wrapper has
+# been called with
 fused_groupnorm_silu.launches = 0
+fused_groupnorm_silu.launches_f32 = 0
 fused_groupnorm_silu.seen = set()

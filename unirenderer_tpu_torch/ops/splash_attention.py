@@ -11,7 +11,10 @@ kernel of `csrc/splash_attention.cu` (bf16, a head-major grid), which
 takes the factor rounded to bf16 and applies it to Q while it stages Q
 (the same bits as `prescale_q`), and raises on anything it does not take,
 non-tileable shapes included; on a CPU tensor it runs the plain version
-below.
+below.  f32 operands go to the splash entry point of the f32 attention
+kernel (`csrc/flash_attention_f32.cu`), which stages Q as f32(q *
+f32(1/sqrt(D))), the same bits as `prescale_q` in f32, and takes the
+scores unscaled.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from unirenderer_tpu_torch.ops import _build
 from unirenderer_tpu_torch.ops.flash_attention import (
-    check_operands, packed_strides, prescale_factor, prescale_q, tileable,
+    check_operands, count_launch, f32_lib, packed_strides, prescale_factor,
+    prescale_q, tileable,
 )
 
 MAX_HEAD_DIM = 128
@@ -59,14 +63,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor,
     b, sq, sk, h, d = check_operands(q, k, v, MAX_HEAD_DIM)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = packed_strides(q, k, v, o)
-    rc = _lib().splash_attn_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, h, sq, sk, d, ctypes.addressof(strides),
-        prescale_factor(q.dtype, 1.0 / math.sqrt(d)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    fn = (f32_lib().splash_attn_forward_f32 if q.dtype == torch.float32
+          else _lib().splash_attn_forward)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, h, sq, sk, d, ctypes.addressof(strides),
+            prescale_factor(q.dtype, 1.0 / math.sqrt(d)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"splash attention launch failed: CUDA error {rc}")
-    splash_attention.launches += 1
+    count_launch(splash_attention, q.dtype)
     return o
 
 
@@ -88,7 +93,9 @@ def splash_attention(q: torch.Tensor, k: torch.Tensor,
     return _launch(q, k, v)
 
 
-# kernel launches so far (the CUDA branch only), and every
-# (q shape, k shape) the wrapper has been called with
+# kernel launches so far (the CUDA branch only; `launches_f32`: those of
+# the f32 kernel alone), and every (q shape, k shape) the wrapper has been
+# called with
 splash_attention.launches = 0
+splash_attention.launches_f32 = 0
 splash_attention.seen = set()

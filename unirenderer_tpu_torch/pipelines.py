@@ -39,6 +39,7 @@ pipeline drew.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import Counter
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -63,6 +64,7 @@ from unirenderer_tpu_torch.ops.flash_attention import tileable
 from unirenderer_tpu_torch.render.light import (
     EnvLight, conditioning_light_maps, env_from_latlong,
 )
+from unirenderer_tpu_torch.utils.runtime import exact_f32
 
 _MAP_NAMES = ("normal", "albedo", "spec_light", "diff_light", "env", "mask")
 # the attribute groups after the clean mask head, in the latent's order
@@ -108,8 +110,21 @@ def fill_random_(module: nn.Module, generator: torch.Generator) -> None:
         p.copy_(z)
 
 
+def _in_exact_f32(method):
+    """`method` with cuDNN and cuBLAS free of TF32 while the pipeline
+    computes in f32 (the caller's flags restored after): f32 on the card
+    means f32."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with exact_f32(self.dtype == torch.float32):
+            return method(self, *args, **kwargs)
+    return wrapped
+
+
 class UniRendererPipeline:
-    """The dual-stream model, the VAE and the text encoder on one device."""
+    """The dual-stream model, the VAE and the text encoder on one device,
+    in one compute type (`dtype`: bf16 or f32 on the card, the types of
+    its kernels)."""
 
     # images per VAE call: bounds the full-resolution activations when the
     # forward path encodes 6 maps x batch at once
@@ -126,6 +141,7 @@ class UniRendererPipeline:
         self.vae = vae
         self.text = text
         self.device = torch.device(device)
+        self.dtype = next(dual.parameters()).dtype
         self.schedule = DiffusionSchedule.create(cfg.diffusion, self.device)
         self._blank_ctx: Optional[torch.Tensor] = None
         # the attribute groups after the mask head (6 at 28 channels)
@@ -168,12 +184,14 @@ class UniRendererPipeline:
     # Encoders / decoders
     # ------------------------------------------------------------------
 
+    @_in_exact_f32
     def blank_context(self, batch: int) -> torch.Tensor:
         """Context of the constant ' ' prompt, computed once."""
         if self._blank_ctx is None:
             self._blank_ctx = self.text(blank_ids(self.cfg.text, self.device))
         return self._blank_ctx.expand(batch, -1, -1)
 
+    @_in_exact_f32
     def _vae_encode(self, images: torch.Tensor,
                     noise: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) images + (N, h, w, 4) noise -> scaled latents."""
@@ -184,10 +202,24 @@ class UniRendererPipeline:
         z = mean + torch.exp(0.5 * logvar) * noise
         return z * self.cfg.vae.scaling_factor
 
+    @_in_exact_f32
     def _vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         z = latents / self.cfg.vae.scaling_factor
         return torch.cat([self.vae.decode(chunk).float()
                           for chunk in z.split(self.VAE_CHUNK)])
+
+    @torch.no_grad()
+    def encode_images(self, images, noise) -> torch.Tensor:
+        """(B, H, W, 3) images in [-1, 1] -> scaled latents (B, h, w, 4),
+        the posterior sampled with `noise` (B, h, w, 4): the JAX
+        pipeline's `encode_images`, its key's draw handed in."""
+        return self._vae_encode(self._tensor(images), self._tensor(noise))
+
+    @torch.no_grad()
+    def decode_latents(self, latents) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) -> images (B, H, W, 3), f32: the JAX
+        pipeline's `decode_latents`."""
+        return self._vae_decode(self._tensor(latents))
 
     def material_latent(self, metallic: torch.Tensor,
                         roughness: torch.Tensor, shape) -> torch.Tensor:
@@ -219,6 +251,7 @@ class UniRendererPipeline:
         is_final = torch.arange(num_steps, device=dev) == num_steps - 1
         return ts, ts_next, is_final
 
+    @_in_exact_f32
     def _sample(self, mode: ModeSpec, img_init: torch.Tensor,
                 attr_groups_init: torch.Tensor, mask_latent: torch.Tensor,
                 ctx: torch.Tensor, num_steps: int,
@@ -406,11 +439,8 @@ class UniRendererPipeline:
             lat = maps
         else:
             if encode_material:
-                mask01 = torch.clamp(maps["mask"] * 0.5 + 0.5, 0.0,
-                                     1.0)[..., :1]
-                m = metallic.reshape(-1, 1, 1, 1) * mask01
-                r = roughness.reshape(-1, 1, 1, 1) * mask01
-                maps["material"] = torch.cat([m, m, r], dim=-1) * 2.0 - 1.0
+                maps["material"] = material_image(maps["mask"], metallic,
+                                                  roughness)
             lat = self._encode_maps(maps, self._tensor(enc_noise))
         shape = lat["normal"].shape
         if encode_material:
@@ -712,6 +742,17 @@ class UniRendererPipeline:
             mask=mask, metallic=metallic, roughness=roughness,
             enc_noise=enc_noise, img_noise=img_noise, num_steps=num_steps,
             material_image_encode=True)
+
+
+def material_image(mask: torch.Tensor, metallic: torch.Tensor,
+                   roughness: torch.Tensor) -> torch.Tensor:
+    """The masked material image [m, m, r] * 2 - 1 (B, H, W, 3): metallic
+    m and roughness r (B,) under the mask (B, H, W, 3) in [-1, 1], zero
+    outside it."""
+    mask01 = torch.clamp(mask * 0.5 + 0.5, 0.0, 1.0)[..., :1]
+    m = metallic.reshape(-1, 1, 1, 1) * mask01
+    r = roughness.reshape(-1, 1, 1, 1) * mask01
+    return torch.cat([m, m, r], dim=-1) * 2.0 - 1.0
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:

@@ -23,10 +23,13 @@
         --sd-vae vae.bin --sd-text text_encoder.bin [--optimizer adafactor]
 
 `--device` defaults to $UNIRENDER_PLATFORM, else cuda, and raises without
-a card.  Under torchrun every rank loads, renders and trains on its
-own rows of the global batch (--batch-per-device x ranks), NCCL on the
-card, gloo with `--device cpu`; rank 0 logs, checkpoints and validates,
-and each rank keeps its own --cache-dir pool (`rank<r>-of-<n>`).  A run
+a card.  The step computes in the type tools/train.py picks: bfloat16 for
+flagship, float32 (the card's f32 kernels, cuDNN without TF32) for small
+and tiny, on either device.  Under torchrun every rank loads, renders and
+trains on its own rows of the global batch (--batch-per-device x ranks),
+NCCL on the card, gloo with `--device cpu`; rank 0 logs, checkpoints and
+validates, and each rank keeps its own --cache-dir pool
+(`rank<r>-of-<n>`).  A run
 resumes from the newest checkpoint in <workdir>/checkpoints
 (checkpoint-<step>: the params npz in the JAX package's format, read by
 `tools/train.py --init-params`, and the optimizer, counters and
@@ -41,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import glob
+import json
 import os
 import sys
 
@@ -135,7 +139,9 @@ def main(argv=None) -> int:
                  "installs all three stacks together)")
 
     from unirenderer_tpu_torch.parallel.mesh import initialize_distributed
-    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    from unirenderer_tpu_torch.utils.runtime import (
+        disable_tf32, kernel_launches, setup_runtime,
+    )
     device = setup_runtime(args.device)
     initialize_distributed(device=device)
 
@@ -149,7 +155,12 @@ def main(argv=None) -> int:
 
     name = "tiny" if args.tiny else args.config
     cfg = getattr(config, name)()
-    over = {}
+    # tools/train.py's type
+    dtype = "bfloat16" if name == "flagship" else "float32"
+    if dtype == "float32":
+        disable_tf32()
+    print(f"[train] compute {dtype} on {device}", flush=True)
+    over = {"compute_dtype": dtype}
     if args.batch_per_device:
         over["batch_size_per_device"] = args.batch_per_device
     if args.lr:
@@ -167,9 +178,8 @@ def main(argv=None) -> int:
         over["checkpoint_every"] = args.checkpoint_every
     if args.validation_every:
         over["validation_every"] = args.validation_every
-    if over:
-        cfg = dataclasses.replace(
-            cfg, train=dataclasses.replace(cfg.train, **over))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             **over))
     data_over = {}
     if args.random_camera:
         data_over["random_camera"] = True
@@ -287,6 +297,8 @@ def main(argv=None) -> int:
                           validation_fn=validation_fn)
     print(f"finished at step {state.step}; metrics in "
           f"{trainer.metrics_path}, checkpoints in {trainer.ckpt_dir}")
+    print(f"[train] kernel launches {json.dumps(kernel_launches())}",
+          flush=True)
     if trainer.mesh is not None:
         import torch.distributed as dist
         dist.destroy_process_group()

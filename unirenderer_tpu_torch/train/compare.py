@@ -5,7 +5,9 @@ the cosine of the flattened gradients and the ratio of their norms.
 `compare([("cuda", torch.bfloat16), ("cpu", torch.float32)])` holds the
 card (bf16, the kernels) against f32 on the CPU at `small()` with the
 trained r05 weights, both branches of the dual timestep draw
-(`chip_smoke.py` phase 9); `[("cpu", torch.bfloat16), ("cpu",
+(`chip_smoke.py` phase 9); `[("cuda", torch.float32), ("cpu",
+torch.float32)]` the card's f32 kernels (cuDNN and cuBLAS without TF32)
+against the same (phase 15); `[("cpu", torch.bfloat16), ("cpu",
 torch.float32)]` measures the bf16 gap alone, with the plain versions.
 `compare_bank` does the same for scene-bank steps: scenes drawn from a
 bank and collated on each setting's device (K4 on the card), with the
@@ -18,6 +20,8 @@ the card departs from f32; the last setting is the reference:
 
     python -m unirenderer_tpu_torch.train.compare --bank held_out \
         --seeds 21,22 [--settings cuda:bfloat16,cpu:bfloat16,cpu:float32]
+    python -m unirenderer_tpu_torch.train.compare \
+        --settings cuda:float32,cpu:float32
 """
 
 from __future__ import annotations
@@ -49,13 +53,15 @@ def small_weights(root: str = ".") -> Dict[str, Mapping[str, np.ndarray]]:
 def trainer_with(cfg, weights, device, dtype: torch.dtype, workdir,
                  **trainer_kwargs) -> Trainer:
     """A Trainer computing in `dtype`, with every weight loaded strictly
-    (`trainer_kwargs`: e.g. a scene bank)."""
+    (None: the Trainer's seeded random ones; `trainer_kwargs`: e.g. a
+    scene bank)."""
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, compute_dtype=str(dtype).removeprefix("torch.")))
     tr = Trainer(cfg, workdir, device=device, **trainer_kwargs)
-    tr.install_dual(weights["dual"])
-    tr.install_vae(weights["vae"])
-    tr.install_text(weights["text"])
+    if weights is not None:
+        tr.install_dual(weights["dual"])
+        tr.install_vae(weights["vae"])
+        tr.install_text(weights["text"])
     return tr
 
 
@@ -106,7 +112,9 @@ def smooth_batch(cfg, batch: int, seed: int) -> Dict[str, torch.Tensor]:
 def compare(settings: Sequence[Tuple[str, torch.dtype]], batch: int = 2,
             seed: int = 1234) -> Dict[str, Dict[str, float]]:
     """small() with the r05 weights: for each branch, one step's gradients
-    under settings[0] against settings[1] (the reference)."""
+    under settings[0] against settings[1] (the reference): `agreement`,
+    and under "groups" the cosine of each group of parameters (stream x
+    attention / norm / other, `group_cosines`)."""
     cfg = config.small()
     weights = small_weights()
     data = smooth_batch(cfg, batch, seed)
@@ -120,7 +128,10 @@ def compare(settings: Sequence[Tuple[str, torch.dtype]], batch: int = 2,
                          (lat, lat), cfg.diffusion.num_train_timesteps,
                          inverse)
             res = [step_grads(tr, data, draws) for tr in trainers]
-            out["inverse" if inverse else "forward"] = agreement(*res)
+            r = agreement(*res)
+            r["groups"] = group_cosines(
+                res[0][0], res[1][0], param_groups(trainers[0].state.params))
+            out["inverse" if inverse else "forward"] = r
     return out
 
 
@@ -271,8 +282,9 @@ def main(argv=None) -> None:
                          "device")
     ap.add_argument("--seeds", default="21")
     ap.add_argument("--settings", default="cuda:bfloat16,cpu:float32",
-                    help="comma-separated `parse_setting`s; the last is "
-                         "the reference")
+                    help="comma-separated `parse_setting`s (device:dtype, "
+                         "e.g. cuda:float32 for the card's f32 kernels); "
+                         "the last is the reference")
     args = ap.parse_args(argv)
     settings = args.settings.split(",")
     from unirenderer_tpu_torch.data import scene_bank

@@ -54,6 +54,7 @@ from unirenderer_tpu_torch.models.vae import AutoencoderKL
 from unirenderer_tpu_torch.pipelines import KernelCalls, UniRendererPipeline
 from unirenderer_tpu_torch.train.adafactor import Adafactor
 from unirenderer_tpu_torch.train.losses import dual_stream_loss
+from unirenderer_tpu_torch.utils.runtime import exact_f32
 
 # (B, H, W, 3) maps in [-1, 1]: the 8 modalities the step VAE-encodes
 BATCH_KEYS = ("image", "material", "mask", "env", "normal", "albedo",
@@ -318,6 +319,7 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
     `compute_dtype`, differentiated (the JAX `value_and_grad(loss_fn)`)."""
     loss_fn = make_loss_fn(cfg, dual, vae, schedule)
     grad_bf16 = cfg.train.grad_dtype == "bfloat16"
+    f32 = compute_dtype == torch.float32
 
     def grad_fn(params: Mapping[str, torch.Tensor], batch, ctx,
                 draws: Draws, contrastive_scale: float = 1.0):
@@ -328,7 +330,8 @@ def make_grad_fn(cfg: SystemConfig, dual: DualStreamModel,
         else:
             compute = {n: p.to(compute_dtype) for n, p in params.items()}
             wrt = list(params.values())
-        with use_params(dual, compute):     # over the backward too
+        # over the backward too; f32 without TF32
+        with use_params(dual, compute), exact_f32(f32):
             loss, metrics = loss_fn(compute, batch, ctx, draws,
                                     contrastive_scale)
             grads = list(torch.autograd.grad(loss, wrt))

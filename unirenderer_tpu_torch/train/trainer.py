@@ -79,17 +79,22 @@ def _build(module: torch.nn.Module, device, dtype,
     return module
 
 
+# the compute types the card's kernels take (f16 and f64: no JAX entry
+# point computes in them)
+CARD_DTYPES = ("bfloat16", "float32")
+
+
 def resolve_compute_dtype(cfg: TrainConfig,
                           device: torch.device) -> torch.dtype:
     """TrainConfig.compute_dtype on `device`: None gives bf16 on the card
-    and f32 on the CPU; the card's kernels take bf16 only, so any other
-    type asked for there raises."""
+    (the JAX Trainer's default) and f32 on the CPU; the card takes bf16 and
+    f32, the types of its kernels, and raises on any other."""
     if cfg.compute_dtype is None:
         return torch.bfloat16 if device.type == "cuda" else torch.float32
     dtype = getattr(torch, cfg.compute_dtype)
-    if device.type == "cuda" and dtype != torch.bfloat16:
+    if device.type == "cuda" and cfg.compute_dtype not in CARD_DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r} on the card: "
-                         "its kernels take bfloat16 only")
+                         f"its kernels take {' or '.join(CARD_DTYPES)}")
     return dtype
 
 

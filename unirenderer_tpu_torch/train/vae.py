@@ -11,13 +11,15 @@ and writes <workdir>/vae_checkpoints/checkpoint-<step> (the params npz is
 the frozen VAE that `python -m unirenderer_tpu_torch.train --vae-ckpt`
 takes) and vae_metrics.jsonl; a run resumes from its newest checkpoint.
 `--device` defaults to $UNIRENDER_PLATFORM, else cuda, and raises
-without a card.
+without a card.  The step computes in f32, as tools/train_vae.py does
+(the card's f32 kernels, cuDNN without TF32).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 
 
@@ -69,11 +71,16 @@ def main(argv=None) -> int:
     from unirenderer_tpu_torch.train.__main__ import data_paths
     from unirenderer_tpu_torch.train.trainer import synthetic_batches
     from unirenderer_tpu_torch.train.vae_train import train_vae
-    from unirenderer_tpu_torch.utils.runtime import setup_runtime
+    from unirenderer_tpu_torch.utils.runtime import (
+        disable_tf32, kernel_launches, setup_runtime,
+    )
 
     device = setup_runtime(args.device)
+    disable_tf32()
     name = "tiny" if args.tiny else args.config
     cfg = getattr(config, name)()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="float32"))     # tools/train_vae.py's
     res = args.resolution or cfg.vae.sample_size
     bank = None
     batches = None
@@ -120,6 +127,8 @@ def main(argv=None) -> int:
                       log=lambda msg: print(msg, flush=True))
     print(f"finished at step {state.step} (target {args.steps}); "
           f"checkpoints in {args.workdir}/vae_checkpoints", flush=True)
+    print(f"[vae] kernel launches {json.dumps(kernel_launches())}",
+          flush=True)
     return 0
 
 

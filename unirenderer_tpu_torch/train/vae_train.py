@@ -4,9 +4,11 @@ into one image batch (images, normals, albedo, masks and light maps
 alike), with L1 + MSE reconstruction + beta x KL against N(0, I), no GAN
 term; the result is the frozen VAE of diffusion training.
 
-f32 master parameters, computed in `trainer.resolve_compute_dtype` (bf16
-on the card: K1 runs under autograd in the encoder and the decoder; the
-mid-block attention is plain PyTorch); global-norm clipping at 1.0 and
+f32 master parameters, computed in `trainer.resolve_compute_dtype` (the
+VAE CLI asks for f32, as tools/train_vae.py): K1 runs under autograd in
+the encoder and the decoder, its f32 form in f32 (cuDNN without TF32) and
+its bf16 one in bf16; the mid-block attention is plain PyTorch;
+global-norm clipping at 1.0 and
 AdamW (betas 0.9 / 0.999, weight decay 1e-4), as optax's chain.  The
 posterior noise is drawn on the host (the step takes it), and with a
 scene bank the scenes' draws too, from one generator whose state is
@@ -28,6 +30,7 @@ from unirenderer_tpu_torch.core.config import SystemConfig
 from unirenderer_tpu_torch.train.train_step import (
     BATCH_KEYS, clip_by_global_norm_, use_params, warmup_cosine,
 )
+from unirenderer_tpu_torch.utils.runtime import exact_f32
 
 VAE_MAX_GRAD_NORM = 1.0
 
@@ -112,7 +115,8 @@ def make_vae_train_step(vae: nn.Module, lr: Union[float, Callable],
     def vae_step(state: VAETrainState, images: torch.Tensor,
                  noise: torch.Tensor) -> Dict[str, torch.Tensor]:
         compute = {n: p.to(compute_dtype) for n, p in state.params.items()}
-        with use_params(vae, compute):
+        with use_params(vae, compute), \
+                exact_f32(compute_dtype == torch.float32):
             loss, metrics = loss_fn(images, noise)
             grads = torch.autograd.grad(loss, list(state.params.values()))
         grads = [g.float() for g in grads]
@@ -192,6 +196,8 @@ def train_vae(cfg: SystemConfig, batch_iterator: Optional[Iterator[Mapping]],
     )
     dev = resolve_device(device)
     compute_dtype = resolve_compute_dtype(cfg.train, dev)
+    log(f"[vae] compute {str(compute_dtype).removeprefix('torch.')} on "
+        f"{dev}")
     vae = build_vae(cfg, dev, seed)
     if init_params:
         warm, wstep = load_params_npz(init_params)

@@ -10,13 +10,21 @@ Two environment variables, as in the JAX package:
   * `UNIRENDER_COMPILE_CACHE`: the directory the hand-written kernels
     (`ops/_build.py`) and the OBJ scanner (`data/obj_io.py`) are built
     into; unset, the package's git-ignored `_build/`.
+
+f32 on the card means f32: PyTorch runs f32 convolutions through cuDNN in
+TF32 by default (`torch.backends.cudnn.allow_tf32`), which keeps 10 bits
+of mantissa.  The CLIs that compute in f32 call `disable_tf32()` first;
+the library's f32 paths on the card (the train step's gradients, the
+VAE step, the pipeline's sampling and VAE calls) run under `exact_f32()`,
+which restores the caller's flags after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -49,3 +57,48 @@ def setup_runtime(device: Optional[str] = None) -> torch.device:
                              f"{', '.join(PLATFORMS)}")
         device = PLATFORMS[plat]
     return resolve_device(device)
+
+
+def disable_tf32() -> None:
+    """f32 products and convolutions in f32 for the rest of the process
+    (cuBLAS and cuDNN without TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def exact_f32(enabled: bool = True):
+    """Within (when `enabled`): cuBLAS and cuDNN without TF32; the caller's
+    flags are restored on exit."""
+    if not enabled:
+        yield
+        return
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    disable_tf32()
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The hand-written kernels' launches so far in this process, by
+    wrapper (every type), and of the f32 forms alone (`<name>_f32`)."""
+    from unirenderer_tpu_torch.ops.attn_kernel import unet_flash_attention
+    from unirenderer_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
+    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    from unirenderer_tpu_torch.ops.rasterize import rasterize
+    from unirenderer_tpu_torch.ops.splash_attention import splash_attention
+    out = {"rasterize": rasterize.launches}
+    for name, fn in (("groupnorm_silu", fused_groupnorm_silu),
+                     ("flash_attention", flash_attention),
+                     ("flash_attention_backward", flash_attention_backward),
+                     ("splash_attention", splash_attention),
+                     ("attn_kernel", unet_flash_attention)):
+        out[name] = fn.launches
+        out[f"{name}_f32"] = fn.launches_f32
+    return out
