@@ -9,7 +9,8 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
      and the -Xptxas -v report (registers, shared memory, spills, and any
-     note that ptxas serialized the wgmma instructions)
+     note that ptxas serialized the wgmma instructions); the f32 attention
+     kernels' instances must not spill
   2  kernels against their plain PyTorch versions in bf16, at every call
      signature the flagship forward path (batch 2) and the flagship inverse
      path (batch 2 x ensemble 5) give them, plus a ragged case each (K1
@@ -197,10 +198,12 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      their plain versions in f32 at every K1 / K2 signature of small()'s
      paths in this phase, the flagship headline shapes and ragged ones:
      K1 within 2^-16 * max|plain| and a rerun bit-equal, K2 / K2s / K3
-     2^-14, K2's log-sum-exp 2^-16 absolute, K2 bwd's dQ, dK, dV 2^-12 and
-     a rerun within that; times against the f32 bounds (bytes, f32 FMA
-     operations at 67 TFLOP/s, one exp a score forward), the plain version
-     and one library call in f32; K1's f32 launch plans (x kept in shared
+     2^-14 and a rerun bit-equal, K2's log-sum-exp 2^-16 absolute, K2
+     bwd's dQ, dK, dV 2^-12 and a rerun bit-equal; times against the f32
+     bounds (bytes; the f32-accurate products at the lesser of f32 FMAs
+     at 67 TFLOP/s and three TF32 passes at 495 / 3, both printed; one
+     exp a score forward), the plain version and one library call in
+     f32; K1's f32 launch plans (x kept in shared
      memory or re-read) at every small(), medium() and flagship signature;
      (b) the trained small() weights in f32, card against CPU: one forward
      and one inverse model evaluation within 1e-4 * max|ref|, a 20-step
@@ -235,6 +238,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -248,6 +252,7 @@ SMALL_MODEL_REL = 0.05           # bf16 small() model vs f32, rel. to max|ref|
 SMALL_RENDER_MEAN_ABS = 0.1      # bf16 vs f32 forward render, mean |diff|
 INVERSE_ENSEMBLE = 5             # the flagship recipe (SamplerConfig)
 FP32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor cores
 MUFU_EXP2_PER_CLOCK = 16         # exp2 results per clock per SM (sm_90)
 RAST_TILE = 16                   # csrc/rasterize.cu's tile side
 RAST_TEST_FLOPS = 12             # 3 edge functions, 2 mul + 2 add each
@@ -3597,6 +3602,8 @@ F32_RAGGED_GN = (((2, 37, 29, 36), 4, 1e-6, True),
 F32_RAGGED_ATTN = (((2, 1000, 8, 40), (2, 333, 8, 40)),
                    ((1, 77, 3, 24), (1, 200, 3, 24)))
 F32_HEADLINE_ATTN = ((2, 4096, 8, 40), (2, 4096, 8, 40))
+# the three-pass TF32 tensor-core kernels (csrc/mma_tf32.cuh)
+F32_TC_SOURCES = ("flash_attention_f32", "flash_attention_bwd_f32")
 
 
 def gn_case_f32(torch, F, timer, gen, case, param_dtype="float32"):
@@ -3648,20 +3655,25 @@ def attn_bound_f32(torch, qs, ks, forward=True):
     """The least time for attention over f32 (q shape, k shape): the
     largest of the bytes (q, k, v read and o written once; the backward
     also o and dO read, dQ, dK, dV written and the log-sum-exp read), the
-    f32 FMA operations (4 Sq Sk D a (batch, head) forward, 10 backward:
-    the five products) and, forward, one exp a score."""
+    f32-accurate products (4 Sq Sk D flops a (batch, head) forward, 10
+    backward: the five products) and, forward, one exp a score.  The
+    products take the lesser of two times: f32 FMAs on the CUDA cores
+    (67 TFLOP/s) and three TF32 passes on the tensor cores (495 / 3
+    TFLOP/s, the kernels' route), both returned beside the parts."""
     b, sq, h, d = qs
     sk = ks[1]
     q_n, k_n = b * sq * h * d, b * sk * h * d
+    flops = (4.0 if forward else 10.0) * b * h * sq * sk * d
+    ops = {"f32_fma": flops / FP32_FLOPS * 1e3,
+           "tf32x3": 3 * flops / TF32_FLOPS * 1e3}
+    parts = {"operations": min(ops.values())}
     if forward:
-        parts = {"operations": 4.0 * b * h * sq * sk * d / FP32_FLOPS * 1e3,
-                 "bytes": 4.0 * (2 * q_n + 2 * k_n) / HBM_BYTES_PER_S * 1e3,
-                 "exp2": b * h * sq * sk / exp2_rate(torch) * 1e3}
+        parts.update(bytes=4.0 * (2 * q_n + 2 * k_n) / HBM_BYTES_PER_S * 1e3,
+                     exp2=b * h * sq * sk / exp2_rate(torch) * 1e3)
     else:
-        parts = {"operations": 10.0 * b * h * sq * sk * d / FP32_FLOPS * 1e3,
-                 "bytes": (4.0 * (4 * q_n + 4 * k_n) + 4 * b * h * sq)
-                 / HBM_BYTES_PER_S * 1e3}
-    return parts
+        parts["bytes"] = ((4.0 * (4 * q_n + 4 * k_n) + 4 * b * h * sq)
+                          / HBM_BYTES_PER_S * 1e3)
+    return parts, ops
 
 
 def attn_case_f32(torch, F, timer, gen, case, kernel="flash_attention",
@@ -3669,7 +3681,8 @@ def attn_case_f32(torch, F, timer, gen, case, kernel="flash_attention",
     """The f32 form of K2 (with its log-sum-exp), K2s or K3 (with
     `options`) at (q shape, k shape): error against its plain version on
     the same f32 inputs (its Q pre-scale rounded to f32, as the kernel's
-    caller rounds it), and the times."""
+    caller rounds it), a rerun that must give the same bits, and the
+    times."""
     from unirenderer_tpu_torch.ops.flash_attention import (
         attention_lse_reference, flash_attention_with_lse,
     )
@@ -3680,14 +3693,18 @@ def attn_case_f32(torch, F, timer, gen, case, kernel="flash_attention",
     k = torch.randn(ks, generator=gen, device="cuda")
     v = torch.randn(ks, generator=gen, device="cuda")
     o = fn(q, k, v, **options)
+    again = fn(q, k, v, **options)
     torch.cuda.synchronize()          # a fault here is the kernel's
     ref = reference(q, k, v, **ref_options)
     torch.cuda.synchronize()
     err = (o - ref).abs().max().item()
     tol = F32_ATTN_REL * ref.abs().max().item()
+    rerun_equal = bool(torch.equal(o, again))
+    del again
     out = dict(kernel=f"{kernel}_f32", shape=[list(qs), list(ks)],
-               options=options, max_abs_err=err, tol=tol)
-    ok = err <= tol
+               options=options, max_abs_err=err, tol=tol,
+               rerun_bit_identical=rerun_equal)
+    ok = err <= tol and rerun_equal
     if kernel == "flash_attention":
         o2, lse = flash_attention_with_lse(q, k, v)
         lse_err = (lse - attention_lse_reference(q, k, v)[1]
@@ -3699,22 +3716,22 @@ def attn_case_f32(torch, F, timer, gen, case, kernel="flash_attention",
         del o2, lse
     del ref, o
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    parts = attn_bound_f32(torch, qs, ks)
+    parts, ops = attn_bound_f32(torch, qs, ks)
     bound_by = max(parts, key=parts.get)
     out.update(ok=ok, ms=timer(lambda: fn(q, k, v, **options)),
                plain_ms=timer(lambda: reference(q, k, v, **ref_options)),
                library_ms=timer(
                    lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                bound_ms=parts[bound_by], bound_by=bound_by,
-               bound_parts=parts)
+               bound_parts=parts, op_bounds=ops)
     return out
 
 
 def attn_bwd_case_f32(torch, F, timer, gen, case):
     """K2 bwd's f32 form at (q shape, k shape): dQ, dK, dV against the
     plain backward on the same f32 inputs and the f32 forward's O and
-    log-sum-exp, a second run within the same tolerance of the first, and
-    the times."""
+    log-sum-exp, a second run that must give the same bits (no atomics),
+    and the times."""
     from unirenderer_tpu_torch.ops.flash_attention import (
         attention_backward_reference, flash_attention_backward,
         flash_attention_with_lse,
@@ -3735,7 +3752,7 @@ def attn_bwd_case_f32(torch, F, timer, gen, case):
     rerun = max((g - a).abs().max().item() for g, a in zip(got, again))
     del got, again, want
     tol = min(t for _, t in errs.values())
-    ok = all(e <= t for e, t in errs.values()) and rerun <= tol
+    ok = all(e <= t for e, t in errs.values()) and rerun == 0.0
     ms = timer(lambda: flash_attention_backward(q, k, v, o, lse, do))
     plain_ms = timer(lambda: attention_backward_reference(q, k, v, o, lse,
                                                           do))
@@ -3746,14 +3763,14 @@ def attn_bwd_case_f32(torch, F, timer, gen, case):
     library_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                    retain_graph=True))
     del out
-    parts = attn_bound_f32(torch, qs, ks, forward=False)
+    parts, ops = attn_bound_f32(torch, qs, ks, forward=False)
     bound_by = max(parts, key=parts.get)
     return dict(kernel="flash_attention_backward_f32",
                 shape=[list(qs), list(ks)], errs=errs, rerun_diff=rerun,
                 ok=ok, max_abs_err=max(e for e, _ in errs.values()), tol=tol,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=parts[bound_by], bound_by=bound_by,
-                bound_parts=parts)
+                bound_parts=parts, op_bounds=ops)
 
 
 def f32_cases():
@@ -3836,6 +3853,8 @@ def f32_kernel_cases(torch, F, cases):
             extra = (f"lse {r['lse_err']:.3g}/{r['lse_tol']:.3g} o of the "
                      f"lse launch bit-identical "
                      f"{int(r['lse_bit_identical_o'])} ")
+        if "rerun_bit_identical" in r and "groups" not in r:
+            extra += f"rerun bit-identical {int(r['rerun_bit_identical'])} "
         if r.get("options"):
             extra += f"{r['options']} "
         log(f"  {r['kernel']:28s} {json.dumps(r['shape'])} {extra}"
@@ -3845,7 +3864,9 @@ def f32_kernel_cases(torch, F, cases):
             f"ratio {r['ms'] / r['library_ms']:.2f}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}"
             + "".join(f"; {k} {v:.4f}"
-                      for k, v in r.get("bound_parts", {}).items()) + ")")
+                      for k, v in r.get("bound_parts", {}).items()) + ")"
+            + ("".join(f" {k} {v:.4f}" for k, v in r["op_bounds"].items())
+               if "op_bounds" in r else ""))
         torch.cuda.empty_cache()
     del timer
     bad = [r for r in results if not case_ok(r)]
@@ -4356,7 +4377,8 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             built = _build.build()
             log(f"phase 1 build: {time.perf_counter() - t:.1f} s wall "
-                f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+                f"(nvcc {' '.join(_build.NVCC_FLAGS)}; -split-compile=0 "
+                f"for {', '.join(_build.SPLIT_COMPILE)})")
             record["build"] = {}
             for b in built.values():
                 log(f"  {b.name}: {b.seconds:.1f} s -> {b.path.name}")
@@ -4368,6 +4390,11 @@ def main(argv=None) -> int:
                     print(f"    {line}", flush=True)
                 record["build"][b.name] = dict(seconds=b.seconds,
                                                ptxas=report)
+                if b.name in F32_TC_SOURCES:
+                    spills = [line for line in report if re.search(
+                        r"[1-9]\d* bytes spill (stores|loads)", line)]
+                    log(f"  {b.name}: {len(spills)} spilling instance(s)")
+                    check(not spills, f"{b.name} spills: {spills[:2]}")
 
         cfg = config.flagship()
         cases = phase2_cases(cfg)

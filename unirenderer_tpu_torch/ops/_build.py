@@ -42,6 +42,11 @@ NVCC_FLAGS = (
 # the checked build of chip_sanitize.py
 INDEX_CHECK = ("-DUNIRENDER_INDEX_CHECK",)
 
+# The sources whose many template instances make them the build's long
+# pole: nvcc spreads their optimisation over the machine's cores, which
+# the other sources have left by then.
+SPLIT_COMPILE = ("flash_attention_f32", "flash_attention_bwd_f32")
+
 _loaded: Dict[str, Tuple[ctypes.CDLL, Tuple[str, ...]]] = {}
 
 
@@ -64,10 +69,18 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def source_flags(name: str, extra_flags: Tuple[str, ...] = ()
+                 ) -> Tuple[str, ...]:
+    """nvcc's flags for `csrc/<name>.cu`: the common ones, the split of
+    the long-pole sources, then `extra_flags`."""
+    split = ("-split-compile=0",) if name in SPLIT_COMPILE else ()
+    return NVCC_FLAGS + split + tuple(extra_flags)
+
+
 def library_path(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    flags = " ".join(NVCC_FLAGS + tuple(extra_flags))
+    flags = " ".join(source_flags(name, extra_flags))
     digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -88,8 +101,8 @@ def build(names: Iterable[str] = SOURCES,
             results[name] = BuildResult(name, out, 0.0, log)
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *source_flags(name, extra_flags), "-o",
+               str(tmp), str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, log_path, time.perf_counter(), cmd)
