@@ -706,8 +706,9 @@ def _wrappers():
 def reset_counters():
     for w in _wrappers().values():
         w.launches = 0
-        if hasattr(w, "launches_f32"):
-            w.launches_f32 = 0
+        for extra in ("launches_f32", "launches_cluster"):
+            if hasattr(w, extra):
+                setattr(w, extra, 0)
         w.seen.clear()
 
 
@@ -2929,12 +2930,14 @@ KERNELS = {
         # the flagship collate's raster: 2 views at 1024^2, T 32768
         headline=lambda r: r.get("case") == "flagship collate"),
     # the f32 forms (phase 15); launches from the f32 main path: the
-    # held-out harness (K1, K2), the train step (K2 bwd), a small()
-    # request under each route (K2s, K3)
+    # held-out harness (K1 on the cluster kernel, K2), the train step (K2
+    # bwd), a small() request under each route (K2s, K3)
     "groupnorm_silu_f32": dict(
-        route="cuda", source="unirenderer_tpu_torch/csrc/groupnorm.cu",
+        route="cuda", source="unirenderer_tpu_torch/csrc/groupnorm_f32.cu",
         replaces="unirenderer_tpu/ops/groupnorm.py:42",
-        headline=lambda r: (r["shape"] == [2, 64, 64, 320]
+        # the held-out harness's most launched K1 call (2320 of 10528):
+        # the UNet's 4^2 ResnetBlock norm at batch 4
+        headline=lambda r: (r["shape"] == [4, 4, 4, 512]
                             and r["eps"] == 1e-5 and r["silu"]
                             and r["param_dtype"] == "float32")),
     "flash_attention_f32": dict(
@@ -3609,7 +3612,10 @@ F32_TC_SOURCES = ("flash_attention_f32", "flash_attention_bwd_f32")
 def gn_case_f32(torch, F, timer, gen, case, param_dtype="float32"):
     """K1's f32 form at one call signature: error against the plain
     version on the same f32 inputs, a rerun that must give the same bits,
-    the launch plan's branch, and the times."""
+    the launch plan's branch, and the times.  A case on the cluster branch
+    is the cluster kernel's (csrc/groupnorm_f32.cu, `groupnorm_silu_f32`);
+    one on the cooperative kernel's f32 instance is
+    `groupnorm_silu_f32_cooperative`."""
     from unirenderer_tpu_torch.ops import groupnorm as gn
     shape, groups, eps, silu = case
     c = shape[-1]
@@ -3643,9 +3649,12 @@ def gn_case_f32(torch, F, timer, gen, case, param_dtype="float32"):
     bound_ms = ((2 * nbytes + 2 * c * scale.element_size())
                 / HBM_BYTES_PER_S * 1e3)
     plan = gn.plan(shape, groups, torch.float32, pdt)
-    return dict(kernel="groupnorm_silu_f32", shape=list(shape),
+    kernel = ("groupnorm_silu_f32" if plan["branch"] == "cluster"
+              else "groupnorm_silu_f32_cooperative")
+    return dict(kernel=kernel, shape=list(shape),
                 groups=groups, eps=eps, silu=silu, param_dtype=param_dtype,
-                rerun_bit_identical=rerun_equal, cached=plan["cached"],
+                rerun_bit_identical=rerun_equal, branch=plan["branch"],
+                ctas=plan.get("ctas"),
                 ok=err <= tol and rerun_equal, max_abs_err=err, tol=tol,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by="bytes")
@@ -3814,6 +3823,20 @@ def f32_cases():
         checked={"groupnorm_silu": gn_cases, "flash_attention": attn_cases})
 
 
+def harness_kernel_calls():
+    """`pipelines.KernelCalls` of one held-out harness run at small() in
+    phase 15 (c): 32 objects in batches of 4, forward (material image
+    encoded) and inverse at ensemble 1, 20 steps each."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.pipelines import KernelCalls
+    cfg = config.small()
+    calls = KernelCalls(cfg, cfg.vae.sample_size)
+    for _ in range(32 // 4):
+        calls.mask2image_3mod_albedo(4, 20, True)
+        calls.real_image2mask_3mod_albedo(4, 20, 1)
+    return calls
+
+
 def f32_kernel_cases(torch, F, cases):
     """(a): every case, its inputs from one seeded generator in order."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
@@ -3843,8 +3866,8 @@ def f32_kernel_cases(torch, F, cases):
         if "groups" in r:
             extra = (f"g={r['groups']} eps={r['eps']:g} silu={int(r['silu'])}"
                      f" params {r['param_dtype']} rerun bit-identical "
-                     f"{int(r['rerun_bit_identical'])} "
-                     f"{'cached' if r['cached'] else 're-read'} ")
+                     f"{int(r['rerun_bit_identical'])} {r['branch']}"
+                     + (f" x{r['ctas']} " if r['ctas'] else " "))
         elif "errs" in r:
             extra = (" ".join(f"{n} {e:.3g}/{t:.3g}"
                               for n, (e, t) in r["errs"].items())
@@ -3874,10 +3897,92 @@ def f32_kernel_cases(torch, F, cases):
     return results
 
 
+K1_PROFILE_TIMEOUT_S = 300      # (a)'s fresh process for K1's profiles
+
+
+def k1_profile_child(out: str) -> int:
+    """The fresh process of `f32_cluster_route`: one profiled call of K1
+    f32 at each distinct (shape, groups) of small()'s signatures, each in
+    a session of its own with spin kernels before and after it (dropped),
+    written to `out` as [shape, groups, [(kernel, count), ...]]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unirenderer_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    sigs = sorted({(shape, groups) for shape, groups, _, _
+                   in f32_cases()["checked"]["groupnorm_silu"]})
+    res = []
+    for shape, groups in sigs:
+        x = torch.randn(shape, device="cuda")
+        w = torch.ones(shape[-1], device="cuda")
+        fused_groupnorm_silu(x, w, w, groups, 1e-5, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(PAD_CYCLES // 100)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            fused_groupnorm_silu(x, w, w, groups, 1e-5, True)
+            torch.cuda.synchronize()
+            for _ in range(16):
+                torch.cuda._sleep(PAD_CYCLES // 100)
+            torch.cuda.synchronize()
+        res.append([list(shape), groups,
+                    [(e.key, e.count) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0
+                     and "spin_kernel" not in e.key]])
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def f32_cluster_route(torch, cases):
+    """Every K1 signature of small()'s f32 paths (phase 15 (a)'s, which
+    (c) holds the harness's calls to) is planned on the cluster branch,
+    and a profiled call of each distinct (shape, groups) runs one device
+    kernel, the cluster kernel's: no cooperative launch.  The profiles run
+    in a fresh process (`k1_profile_child`): after the earlier phases'
+    sessions, sessions in this process came back with some calls' device
+    events missing (26 of 51 single-call sessions, and 42 events of 69
+    calls in one session, on the H100)."""
+    import tempfile
+    from unirenderer_tpu_torch.ops.groupnorm import plan
+    sigs = sorted(cases["checked"]["groupnorm_silu"])
+    off = [s for s in sigs
+           if plan(s[0], s[1], torch.float32, torch.float32)["branch"]
+           != "cluster"]
+    check(not off, f"K1 f32 signatures off the cluster branch: {off[:3]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "k1_profiles.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--k1-profile-out",
+             out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=K1_PROFILE_TIMEOUT_S)
+        check(proc.returncode == 0, f"K1 profile process exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}")
+        with open(out) as f:
+            calls = json.load(f)
+    bad = [(shape, groups, kernels) for shape, groups, kernels in calls
+           if not (len(kernels) == 1 and kernels[0][1] == 1
+                   and "gn_cluster_kernel" in kernels[0][0])]
+    log(f"  K1 f32: {len(sigs)} small() signatures on the cluster branch; "
+        f"{len(calls) - len(bad)} of {len(calls)} profiled calls (one a "
+        f"distinct (shape, groups), in a fresh process) ran one device "
+        f"kernel, gn_cluster_kernel")
+    check(not bad, f"K1 f32 calls that are not one cluster kernel: "
+          f"{bad[:2]}")
+    return dict(signatures=len(sigs), profiled_calls=len(calls))
+
+
 def f32_gn_branches(torch):
     """K1's f32 launch plans at every K1 signature of the small(),
-    medium() and flagship forward, inverse and train paths: how many keep
-    x's rows in shared memory and which re-read them."""
+    medium() and flagship forward, inverse and train paths: how many take
+    each branch (the cluster kernel, or the cooperative one keeping x in
+    shared memory or re-reading it), and which take the cooperative
+    kernel."""
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.ops.groupnorm import plan
     from unirenderer_tpu_torch.pipelines import (
@@ -3891,13 +3996,18 @@ def f32_gn_branches(torch):
         sigs = (kernel_cases(cfg, 2, res, True)[0]
                 | inverse_kernel_cases(cfg, 2, res, cfg.sampler.ensemble)[0]
                 | train_kernel_cases(cfg, 2, res)[0])
-        reread = sorted(shape for shape, g, _, _ in sigs
-                        if not plan(shape, g, torch.float32,
-                                    torch.float32)["cached"])
-        out[name] = dict(signatures=len(sigs), re_read=reread)
-        log(f"  K1 f32 plans, {name}(): {len(sigs) - len(reread)} of "
-            f"{len(sigs)} signatures keep x in shared memory; re-read: "
-            + (", ".join(str(s) for s in reread) or "none"))
+        branch = {sig: plan(sig[0], sig[1], torch.float32,
+                            torch.float32)["branch"] for sig in sigs}
+        counts = {b: sum(v == b for v in branch.values())
+                  for b in ("cluster", "cached", "re-read")}
+        coop = sorted({sig[0] for sig, b in branch.items() if b != "cluster"})
+        out[name] = dict(signatures=len(sigs), branches=counts,
+                         cooperative=coop)
+        log(f"  K1 f32 plans, {name}(): {len(sigs)} signatures, "
+            + ", ".join(f"{n} {b}" for b, n in counts.items())
+            + "; cooperative: " + (", ".join(str(s) for s in coop[:8])
+                                   or "none")
+            + (f" and {len(coop) - 8} more" if len(coop) > 8 else ""))
     return out
 
 
@@ -3999,10 +4109,21 @@ def f32_held_out(torch, record, checked):
             f"{inv['psnr_maps']['albedo']:.3f} dB, angle "
             f"{inv['normal_angle_mean']:.2f} deg, MR MAE "
             f"{inv['metal_rough_mae']:.4f}")
-    return dict(scores=scores, launches=launches,
-                f32_launches={k: _wrappers()[k].launches_f32
-                              for k in ("groupnorm_silu",
-                                        "flash_attention")})
+    f32_launches = {k: _wrappers()[k].launches_f32
+                    for k in ("groupnorm_silu", "flash_attention")}
+    cluster = _wrappers()["groupnorm_silu"].launches_cluster
+    want = harness_kernel_calls()
+    log(f"  K1 f32 launches in the harness: {cluster} of the cluster kernel "
+        f"of {f32_launches['groupnorm_silu']}; KernelCalls says "
+        f"{want.launches['groupnorm_silu']}")
+    check(cluster == f32_launches["groupnorm_silu"]
+          == want.launches["groupnorm_silu"],
+          "K1 f32 in the harness did not all go through the cluster kernel "
+          "or does not match KernelCalls")
+    return dict(scores=scores, launches=launches, f32_launches=f32_launches,
+                cluster_launches=cluster,
+                k1_calls=[[list(sig[0]), sig[1], sig[2], sig[3], n]
+                          for sig, n in sorted(want.gn.items())])
 
 
 def f32_train_step(torch, record):
@@ -4169,8 +4290,9 @@ def phase_f32(torch, F, record):
                 ("a", f"the f32 kernels against their plain versions: "
                       f"{len(cases['gn'])} K1, {len(cases['attn'])} K2, "
                       f"{len(cases['routes'])} K2s / K3, {len(cases['bwd'])} "
-                      f"K2 bwd cases; K1's f32 plans",
+                      f"K2 bwd cases; K1 f32's route and plans",
                  lambda: dict(cases=f32_kernel_cases(torch, F, cases),
+                              cluster=f32_cluster_route(torch, cases),
                               plans=f32_gn_branches(torch))),
                 ("b", "the trained small() weights in f32, card against "
                       "CPU; the splash and unet_flash routes",
@@ -4190,8 +4312,7 @@ def phase_f32(torch, F, record):
             log(f"  ({part}) done in {out[part + '_s']:.1f} s")
     finally:
         mm.allow_tf32, dnn.allow_tf32 = flags
-    launches["groupnorm_silu_f32"] = out["c"]["f32_launches"][
-        "groupnorm_silu"]
+    launches["groupnorm_silu_f32"] = out["c"]["cluster_launches"]
     launches["flash_attention_f32"] = out["c"]["f32_launches"][
         "flash_attention"]
     launches["flash_attention_backward_f32"] = out["d"]["launches"][
@@ -4340,9 +4461,13 @@ def main(argv=None) -> int:
     ap.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--gloo-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--gloo-out", help=argparse.SUPPRESS)
+    # phase 15 (a)'s fresh process for K1 f32's profiles
+    ap.add_argument("--k1-profile-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.gloo_rank is not None:
         return gloo_rank(args.gloo_rank, args.gloo_port, args.gloo_out)
+    if args.k1_profile_out is not None:
+        return k1_profile_child(args.k1_profile_out)
     phases = {int(p) for p in args.phases.split(",")}
 
     import torch

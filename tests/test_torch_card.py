@@ -920,6 +920,61 @@ def test_groupnorm_kernel_f32(card, shape, groups, eps, silu, param_dtype):
             F32_GN, "groupnorm f32")
 
 
+# the cluster kernel (csrc/groupnorm_f32.cu): (shape, groups, eps, silu,
+# the cluster sizes its plan may give on an H100 SXM, 0 for the
+# cooperative kernel: the largest that keeps 4096 / C rows a CTA and whose
+# clusters the card holds all at once, where that depends on placement,
+# else the least that holds the slice)
+GN_CLUSTER_CASES = [
+    ((2, 16, 16, 128), 16, 1e-5, True, (8,)),   # small()'s UNet: 32 rows
+    ((16, 64, 64, 64), 8, 1e-5, True, (8, 16)),  # small()'s largest
+    ((2, 64, 64, 32), 8, 1e-6, True, (8, 16)),  # small()'s VAE
+    ((4, 4, 4, 1024), 32, 1e-5, True, (4,)),    # wide C, 4 rows a CTA
+    ((2, 3, 3, 1024), 32, 1e-5, False, (2,)),   # 9 rows: 5 + 4
+    ((80, 8, 8, 64), 8, 1e-5, True, (1,)),      # 64 rows: no split
+    ((1, 37, 29, 36), 4, 1e-6, False, (8,)),    # ragged: 7 x 135 + 128
+    ((1, 4, 4, 24), 3, 1e-5, True, (1,)),       # C / G = 8, one warp
+    ((1, 64, 64, 128), 32, 1e-5, True, (0, 16)),  # 2 MB: 16 if placeable
+]
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,eps,silu,ctas", GN_CLUSTER_CASES)
+def test_groupnorm_cluster_kernel_f32(card, shape, groups, eps, silu, ctas,
+                                      param_dtype):
+    """f32 shapes the cluster plan takes go to csrc/groupnorm_f32.cu:
+    within 2^-16 of the plain version, a rerun bit-equal, two launches of
+    the cluster kernel; a shape it leaves goes to the cooperative kernel
+    (its plan says which)."""
+    from unirenderer_tpu_torch.ops.groupnorm import plan
+    got_plan = plan(shape, groups, torch.float32, param_dtype)
+    taken = got_plan["branch"] == "cluster"
+    assert (got_plan["ctas"] if taken else 0) in ctas, got_plan
+    assert got_plan["cached"]
+    g = torch.Generator(device=card).manual_seed(13)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=card) * 2 + 0.5
+    sc = (1 + 0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    bi = (0.1 * torch.randn(c, generator=g, device=card)).to(param_dtype)
+    n = fused_groupnorm_silu.launches_cluster
+    got = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    again = fused_groupnorm_silu(x, sc, bi, groups, eps, silu)
+    torch.cuda.synchronize()
+    assert fused_groupnorm_silu.launches_cluster == n + (2 if taken else 0)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    _within(got, groupnorm_silu_reference(x, sc, bi, groups, eps, silu),
+            F32_GN, "groupnorm f32 (cluster)")
+
+
+def test_groupnorm_cluster_kernel_is_one_device_kernel_a_call(card):
+    x = torch.randn((2, 16, 16, 128), device=card)
+    w = torch.ones(128, device=card)
+    kernels = _device_kernels(
+        lambda: fused_groupnorm_silu(x, w, w, 16, 1e-5, True))
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "gn_cluster_kernel" in kernels[0][0]
+
+
 def _qkv32(card, b, sq, sk, h, d, seed):
     g = torch.Generator(device=card).manual_seed(seed)
     return tuple(torch.randn((b, n, h, d), generator=g, device=card)

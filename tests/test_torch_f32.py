@@ -180,10 +180,13 @@ def test_groupnorm_kernel_takes_f32_with_c_a_multiple_of_4(dtype, c, error,
                                                            monkeypatch):
     """K1's checks: f32 x with C % 4 == 0 (4 channels a 16-byte vector), bf16
     with C % 8 == 0, C up to 4096; f16 raises.  A call that passes them
-    goes on to load the kernel (stopped here)."""
+    goes on to load a kernel library (stopped here: the cooperative one,
+    or for f32 first the cluster kernel's, whose plan decides the
+    route)."""
     def no_library():
         raise _Stop
     monkeypatch.setattr(gn, "_lib", no_library)
+    monkeypatch.setattr(gn, "_lib_f32", no_library)
     x = torch.zeros((1, 2, 2, c), dtype=dtype)
     w = torch.ones(c)
     with pytest.raises(error or _Stop):

@@ -33,7 +33,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("groupnorm", "flash_attention", "flash_attention_bwd",
            "splash_attention", "attn_kernel", "rasterize",
-           "flash_attention_f32", "flash_attention_bwd_f32")
+           "flash_attention_f32", "flash_attention_bwd_f32",
+           "groupnorm_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

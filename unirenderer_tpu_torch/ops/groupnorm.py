@@ -2,12 +2,15 @@
 
 Counterpart of `unirenderer_tpu/ops/groupnorm.py` (`fused_groupnorm_silu`,
 whose Pallas kernel is `_kernel` via `_fused_fwd`).  On a CUDA tensor the
-wrapper launches the hand-written kernel of `csrc/groupnorm.cu` (x in bf16
-or f32, y in x's type, as the JAX kernel writes `x.dtype`; scale and bias
-in bf16 or f32, read in their own type: the wrapper casts nothing) once
-per call, and raises on anything it does not take (f16 and f64 included:
-no JAX entry point computes in them); on a CPU tensor it runs the plain
-PyTorch version below.
+wrapper launches one hand-written kernel per call (x in bf16 or f32, y in
+x's type, as the JAX kernel writes `x.dtype`; scale and bias in bf16 or
+f32, read in their own type: the wrapper casts nothing), and raises on
+anything it does not take (f16 and f64 included: no JAX entry point
+computes in them); on a CPU tensor it runs the plain PyTorch version
+below.  Which kernel is decided from the shape before the launch: f32 x
+whose per-element slice one thread-block cluster holds goes to
+`csrc/groupnorm_f32.cu` (a cluster per batch element); every other shape,
+and bf16 always, to `csrc/groupnorm.cu` (one cooperative grid).
 
 Under autograd the call is a `torch.autograd.Function` whose backward is
 autograd through the plain version, recomputed from the saved x, scale
@@ -117,6 +120,45 @@ def chunked_stats_reference(x: torch.Tensor, groups: int, n_chunks: int,
     return mean, torch.clamp(m2 / n, min=0.0)
 
 
+def cluster_stats_reference(x: torch.Tensor, groups: int,
+                            ctas: int) -> tuple:
+    """The cluster kernel's statistics (csrc/groupnorm_f32.cu), in its
+    order, in f32: x (B, ..., C) split into `ctas` contiguous row ranges
+    of ceil(HW / ctas) rows per batch element (the cluster's ranks; the
+    last ones may hold fewer, or none); per rank and channel the mean and
+    M2 (two passes here; in the kernel a Welford walk per thread, its row
+    lanes merged at once by Chan's formula for k parts); the channels of
+    a group merged at equal counts (the mean of the means; M2 plus n times
+    the squared spread of the means); the ranks merged by Chan's formula
+    in rank order, 0 first.
+    Returns each (batch, group)'s mean and variance, (B, G) each."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    xf = x.float().reshape(b, -1, c)
+    hw = xf.shape[1]
+    rows = -(-hw // ctas)
+    n, mean, m2 = 0.0, torch.zeros(b, groups), torch.zeros(b, groups)
+    for rank in range(ctas):
+        r0, r1 = min(hw, rank * rows), min(hw, (rank + 1) * rows)
+        if r1 == r0:
+            continue
+        part = xf[:, r0:r1].reshape(b, r1 - r0, groups, cg)
+        ch_mean = part.mean(dim=1)                        # (B, G, cg)
+        ch_m2 = ((part - ch_mean[:, None]) ** 2).sum(dim=1)
+        p_mean = ch_mean.sum(dim=-1) / cg
+        p_m2 = (ch_m2 + (r1 - r0) * (ch_mean - p_mean[..., None]) ** 2
+                ).sum(dim=-1)
+        p_n = float((r1 - r0) * cg)
+        if n == 0:
+            n, mean, m2 = p_n, p_mean, p_m2
+            continue
+        nt = n + p_n
+        d = p_mean - mean
+        f = torch.tensor(p_n, dtype=torch.float32) / nt
+        n, mean, m2 = nt, mean + d * f, m2 + p_m2 + d * d * n * f
+    return mean, torch.clamp(m2 / n, min=0.0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("groupnorm")
     if lib.gn_silu_forward.argtypes is None:
@@ -132,32 +174,92 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("groupnorm_f32")
+    if lib.gn_cluster_forward_f32.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gn_cluster_forward_f32.argtypes = [p, p, p, p, i, i, i, i,
+                                               ctypes.c_float, i, i, p]
+        lib.gn_cluster_forward_f32.restype = i
+        lib.gn_cluster_plan.argtypes = [i, i, i, i, i, p]
+        lib.gn_cluster_plan.restype = i
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _max_blocks(device_index: int) -> int:
     with torch.cuda.device(device_index):
         return _lib().gn_max_blocks()
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_plan(batch: int, hw: int, c: int, groups: int,
+                  param_type: int, device_index) -> dict:
+    """The cluster kernel's plan of an f32 shape on the card: `ctas` a
+    cluster (0: the kernel does not take the shape; see the note of
+    csrc/groupnorm_f32.cu for the rule), `rows_per_block`, `threads`,
+    `smem_bytes`."""
+    lib = _lib_f32()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = lib.gn_cluster_plan(batch, hw, c, groups, param_type,
+                                 ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"groupnorm cluster plan for ({batch}, {hw}, "
+                           f"{c}) failed: CUDA error {rc}")
+    return dict(ctas=out[0], rows_per_block=out[1], threads=out[2],
+                smem_bytes=out[3])
+
+
 def plan(shape, groups: int, dtype: torch.dtype = torch.bfloat16,
          param_dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """The kernel's launch plan for x of `shape` and `dtype` on the card,
-    without a launch: `cached` (True: x's rows kept in shared memory and
-    read from device memory once; False: the apply reads them again),
-    `blocks`, `rows_per_block`, `threads`, `smem_bytes`."""
+    """The launch plan for x of `shape` and `dtype` on the card, without a
+    launch: `branch` ("cluster": csrc/groupnorm_f32.cu, a cluster of
+    `ctas` CTAs per batch element; "cached" / "re-read": csrc/groupnorm.cu's
+    cooperative grid, keeping x's rows in shared memory or having the
+    apply read them again), `cached` (True where x is read from device
+    memory once), `blocks`, `rows_per_block`, `threads`, `smem_bytes`."""
     shape = tuple(shape)
     c = shape[-1]
+    hw = math.prod(shape[1:-1])
     device = torch.device(device if device is not None else "cuda")
+    if dtype == torch.float32:
+        cl = _cluster_plan(shape[0], hw, c, groups,
+                           _PARAM_TYPES[param_dtype], device.index)
+        if cl["ctas"]:
+            return dict(branch="cluster", cached=True,
+                        blocks=shape[0] * cl["ctas"], **cl)
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         rc = _lib().gn_plan(
-            shape[0], math.prod(shape[1:-1]), c, groups,
-            int(dtype == torch.float32), _PARAM_TYPES[param_dtype],
-            ctypes.addressof(out))
+            shape[0], hw, c, groups, int(dtype == torch.float32),
+            _PARAM_TYPES[param_dtype], ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"groupnorm plan for {shape} failed: CUDA error "
                            f"{rc}")
-    return dict(cached=bool(out[0]), blocks=out[1], rows_per_block=out[2],
+    return dict(branch="cached" if out[0] else "re-read",
+                cached=bool(out[0]), blocks=out[1], rows_per_block=out[2],
                 threads=out[3], smem_bytes=out[4])
+
+
+def _launch_cluster(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, batch: int, hw: int, groups: int,
+                    eps: float, silu: bool) -> torch.Tensor:
+    """csrc/groupnorm_f32.cu on a checked f32 x that its plan takes: no
+    workspace, one launch."""
+    y = torch.empty_like(x)
+    rc = _lib_f32().gn_cluster_forward_f32(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        batch, hw, x.shape[-1], groups, float(eps), int(bool(silu)),
+        _PARAM_TYPES[scale.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"groupnorm cluster kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_groupnorm_silu.launches += 1
+    fused_groupnorm_silu.launches_f32 += 1
+    fused_groupnorm_silu.launches_cluster += 1
+    return y
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -185,6 +287,10 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError("scale/bias must be contiguous")
     batch = x.shape[0]
     hw = math.prod(x.shape[1:-1])
+    if x.dtype == torch.float32 and _cluster_plan(
+            batch, hw, c, groups, _PARAM_TYPES[scale.dtype],
+            x.device.index)["ctas"]:
+        return _launch_cluster(x, scale, bias, batch, hw, groups, eps, silu)
     lib = _lib()
     # one float2 per (block, group): written whole before it is read
     ws = torch.empty(_max_blocks(x.device.index) * groups * 8,
@@ -252,8 +358,10 @@ def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
 
 
 # kernel launches so far (the CUDA branch only; `launches_f32`: those of
-# the f32 form alone), and every (shape, groups, eps, silu) the wrapper has
-# been called with
+# the f32 forms alone; `launches_cluster`: those of the cluster kernel,
+# all f32), and every (shape, groups, eps, silu) the wrapper has been
+# called with
 fused_groupnorm_silu.launches = 0
 fused_groupnorm_silu.launches_f32 = 0
+fused_groupnorm_silu.launches_cluster = 0
 fused_groupnorm_silu.seen = set()
