@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`unirenderer_tpu_torch`) on one card.
 
-    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,15] [--profile]
+    python3 chip_smoke.py [--out DIR] [--phases 0,1,...,16] [--profile]
 
 Phases, each printing its elapsed seconds as it goes (in the order 0-6,
-8, 7, 9-15: phase 8 reuses phase 3's flagship weights, freed before phase
+8, 7, 9-16: phase 8 reuses phase 3's flagship weights, freed before phase
 7):
   0  device: name, count, torch/CUDA versions, nvidia-smi name and power limit
   1  build: one nvcc per kernel source, all started together; build seconds
@@ -66,9 +66,9 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
   7  the held-out harness: the seed-99 held-out set (32 meshes, 8 envs)
      generated on the card, the trained small() weights and the JAX
      harness's text encoder in bf16, 32 objects, 20 steps; the forward
-     PSNR (`eval.quality.forward_psnr`) fails more than 1 dB below
-     QUALITY_r05_fixed.json's 25.17 dB; the inverse leg
-     (`eval.quality.inverse_scores`) at ensemble 1 and 5 fails more than
+     PSNR (`eval.quality.held_out_scores`) fails more than 1 dB below
+     QUALITY_r05_fixed.json's 25.17 dB; the inverse leg (the same
+     batches' `tool_scores`) at ensemble 1 and 5 fails more than
      1 dB below QUALITY_r05_fixed(_ens5).json's normal and albedo PSNR,
      more than 3 degrees above its mean normal angle or more than 0.05
      above its metallic/roughness MAE
@@ -222,6 +222,27 @@ Phases, each printing its elapsed seconds as it goes (in the order 0-6,
      unirenderer_tpu_torch.train` and `.train.vae` at small() with no type
      given, 2 synthetic steps each: f32, finite losses, the f32 kernels
      launched (the counts the CLIs print)
+ 16  the user's data path: (a) 4 deformed spheres (T 32400) written as OBJ
+     + MTL + PNG and 2 seeded 1024x512 latlong HDRs through `python -m
+     unirenderer_tpu_torch.data.obj2mesh --workers 8` and `.light2map`
+     (512 / 16 / 256) on the card, two processes side by side: every mesh
+     npz array-equal to an in-process `load_obj`, 6 specular levels and a
+     diffuse map an env, finite; seconds per env and peak memory;
+     light2map on the card against the CPU at --res 64 --samples 64 (every
+     texel within 1e-5 * max|CPU| but at most 4 a level, on cube seams,
+     within 2e-2) and a constant HDR giving constant maps; (b) `python -m
+     unirenderer_tpu_torch.eval.quality --config flagship --mesh-dir ...
+     --env-dir ... --n 4 --steps 20 --out ...` (random bf16 weights, one
+     batch, forward and inverse at ensemble 1): the JAX report's keys,
+     finite, `checkpoint_loaded` false, the K1 / K2 launches it prints
+     equal to `pipelines.KernelCalls`, K4 once; then the same batch in
+     this process, cold and warm (walls, peak memory, launches, every
+     shape checked in phase 2) and profiled (device busy); (c) phase 15
+     (f)'s small() train-CLI checkpoint (or one made the same way) through
+     `core.export_params` in float32 and float16, `eval.quality --config
+     small --n 4 --steps 4` with `--ckpt` the directory and the f32 npz
+     giving equal reports, the f16 npz read by `load_params_npz` (the f32
+     masters rounded) and by eval.quality's loader
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, after
@@ -278,7 +299,7 @@ K2_FRESH_DRAWS = 8               # K2 at (2,4096,8,40), each within CARD_REL
 TRAIN_LOSS_REL = 0.01            # small() train step, card bf16 vs CPU f32:
 TRAIN_GRAD_COS = 0.999           # loss, gradient cosine and norm ratio
 TRAIN_NORM_REL = 0.01
-ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15"
+ALL_PHASES = "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16"
 MODES_BATCH = 2                  # phase 11's requests (legacy, relight: 1)
 REUSE = (1, 2, 3)                # encoder_reuse values of phase 11
 REUSE_ROUNDS = 3                 # warm requests of each, in turns
@@ -590,7 +611,8 @@ def case_ok(r) -> bool:
 def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
                   bwd_cases, later_route_cases, later_gn_cases,
                   modes_gn_cases=(), modes_attn_cases=(), vae_gn_cases=(),
-                  apps_gn_cases=(), apps_attn_cases=()):
+                  apps_gn_cases=(), apps_attn_cases=(), user_gn_cases=(),
+                  user_attn_cases=()):
     """`gn_cases`, `later_gn_cases`, `modes_gn_cases`: (call signature,
     parameter type) of K1; `attn_cases`, `modes_attn_cases`: (q shape, k
     shape) of K2; `route_cases`, `later_route_cases`: (kernel name, case,
@@ -599,7 +621,8 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
     `later_` and then the `modes_` cases (phase 11's shapes), added after
     the others, run last, so that each earlier case keeps the inputs it
     had before they were added; the `vae_` cases (phase 12's VAE training
-    shapes) after those, then the `apps_` cases (phase 13's)."""
+    shapes) after those, then the `apps_` cases (phase 13's), then the
+    `user_` cases (phase 16's)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def gn_job(c, p):
@@ -624,7 +647,10 @@ def phase_kernels(torch, F, timer, gn_cases, attn_cases, route_cases,
             + [gn_job(c, p) for c, p in vae_gn_cases]
             + [gn_job(c, p) for c, p in apps_gn_cases]
             + [route_job("flash_attention", c, {})
-               for c in apps_attn_cases])
+               for c in apps_attn_cases]
+            + [gn_job(c, p) for c, p in user_gn_cases]
+            + [route_job("flash_attention", c, {})
+               for c in user_attn_cases])
     # what the timer reads for the least device work: a one-element fill
     one = torch.empty(1, device="cuda")
     floor_ms = timer(lambda: one.fill_(1.0))
@@ -1141,14 +1167,17 @@ def rast_device_kernels(torch, pos, tri, h, w):
 
 def rast_signatures(cfg):
     """The rasterizer calls phase 5 checks, in the form the wrapper records
-    in `.seen`: the flagship collate's (plain and peeled) and small()'s."""
+    in `.seen`: the flagship collate's (plain and peeled), phase 16's
+    flagship collate of USER_MESHES views and small()'s."""
     from unirenderer_tpu_torch.core import config
     out = set()
-    for d, peels in ((cfg.data, (False, True)),
-                     (config.small().data, (False,))):
+    for d, views, peels in ((cfg.data, 2, (False, True)),
+                            (cfg.data, USER_MESHES, (False,)),
+                            (config.small().data, 2, (False,))):
         res = d.resolution * d.ssaa
         for peel in peels:
-            out.add(((2, d.v_pad, 4), (2, d.t_pad, 3), res, res, peel))
+            out.add(((views, d.v_pad, 4), (views, d.t_pad, 3), res, res,
+                     peel))
     return out
 
 
@@ -1172,10 +1201,10 @@ def full_screen_and_degenerate(torch, pos, tri):
 
 
 def phase_rasterize(torch, cfg, timer):
-    """K4 at the flagship collate's shape, the small() collate's shape, a
-    peel layer, a ragged size, a full-screen triangle and an all-degenerate
-    mesh; the set-up and the tile lists at the flagship collate; device
-    kernels a call."""
+    """K4 at the flagship collate's shape, phase 16's flagship collate of
+    USER_MESHES views, the small() collate's shape, a peel layer, a ragged
+    size, a full-screen triangle and an all-degenerate mesh; the set-up and
+    the tile lists at the flagship collate; device kernels a call."""
     from unirenderer_tpu_torch.core import config
     from unirenderer_tpu_torch.ops.rasterize import rasterize_reference
     d, s = cfg.data, config.small().data
@@ -1188,6 +1217,10 @@ def phase_rasterize(torch, cfg, timer):
     cases.append(rast_case(torch, timer, "flagship peel", pos, tri, flag,
                            flag, prev_z=first.z.contiguous()))
     del first
+    pos_u, tri_u = deformed_spheres(torch, USER_MESHES, USER_SPHERE_RES,
+                                    d.v_pad, d.t_pad, SEED + 2)
+    cases.append(rast_case(torch, timer, "flagship user", pos_u, tri_u,
+                           flag, flag))
     cases.append(rast_case(torch, timer, "ragged", pos[:1], tri[:1], 1000,
                            744))
     pos_s, tri_s = deformed_spheres(torch, 2, 32, s.v_pad, s.t_pad, SEED + 1)
@@ -1211,13 +1244,17 @@ def phase_rasterize(torch, cfg, timer):
     check(cases[-1]["coverage"] == 0.0, "a degenerate triangle covered a "
           "pixel")
     setup = rast_setup_and_bins(torch, pos, tri, flag, flag)
-    log(f"  set-up kernel at the flagship collate: records bit-equal "
-        f"{int(setup['records_bit_equal'])}, boxes bit-equal "
-        f"{int(setup['boxes_bit_equal'])}, list offsets equal "
-        f"{int(setup['starts_equal'])}, tile lists equal "
-        f"{int(setup['lists_equal'])}: {setup['live']} live triangles, "
-        f"{setup['pairs']} (triangle, tile) pairs over {setup['tiles']} "
-        f"tiles, wide {setup['wide']}")
+    setup_u = rast_setup_and_bins(torch, pos_u, tri_u, flag, flag)
+    del pos_u, tri_u
+    for what, st in (("flagship collate", setup),
+                     (f"{USER_MESHES}-view flagship collate", setup_u)):
+        log(f"  set-up kernel at the {what}: records bit-equal "
+            f"{int(st['records_bit_equal'])}, boxes bit-equal "
+            f"{int(st['boxes_bit_equal'])}, list offsets equal "
+            f"{int(st['starts_equal'])}, tile lists equal "
+            f"{int(st['lists_equal'])}: {st['live']} live triangles, "
+            f"{st['pairs']} (triangle, tile) pairs over {st['tiles']} "
+            f"tiles, wide {st['wide']}")
     kernels = rast_device_kernels(torch, pos, tri, flag, flag)
     n_ops = sum(c for _, c, _ in kernels)
     log(f"  device operations a call: {n_ops} ("
@@ -1226,12 +1263,14 @@ def phase_rasterize(torch, cfg, timer):
     for r in cases:
         r["device_ops_per_call"] = n_ops
     cases[0]["setup"] = setup
+    cases[2]["setup"] = setup_u
     cases[0]["device_ops"] = kernels
     torch.cuda.empty_cache()
     bad = [r["case"] for r in cases if not r["ok"]]
     check(not bad, f"rasterize cases outside the rule or not bit-equal: "
           f"{bad}")
-    check(setup["ok"], f"the set-up kernel or its tile lists differ: {setup}")
+    for st in (setup, setup_u):
+        check(st["ok"], f"the set-up kernel or its tile lists differ: {st}")
     check(n_ops <= 5 and sum(c for k, c, _ in kernels if "rast_" in k) == 4,
           f"rasterize ran {n_ops} device operations a call, not its memset "
           f"and 4 kernels: {kernels}")
@@ -2429,8 +2468,8 @@ def small_resume_and_validation(torch, tmp):
     from unirenderer_tpu_torch.data.scene_bank import load_scene_bank
     from unirenderer_tpu_torch.data.synthetic import write_dataset
     from unirenderer_tpu_torch.eval.quality import (
-        HELD_OUT, _held_out_batches, held_out_paths, inverse_scores,
-        small_trained_pipeline,
+        HELD_OUT, InverseTally, _held_out_batches, held_out_paths,
+        inverse_batch, small_trained_pipeline,
     )
     from unirenderer_tpu_torch.eval.validation import make_validation_fn
     from unirenderer_tpu_torch.train.compare import (
@@ -2456,9 +2495,10 @@ def small_resume_and_validation(torch, tmp):
                       scene_bank=bank)
     # validation at the r05 weights
     pipe = small_trained_pipeline("cuda", torch.bfloat16)
-    ref = inverse_scores(pipe, meshes, envs, n=4, num_steps=20,
-                         noise_seed=1000, ensemble=1)["psnr_maps"]
     val_batch = next(_held_out_batches(pipe, meshes, envs, 4))
+    tally = InverseTally()
+    tally.add(val_batch, inverse_batch(pipe, val_batch, 20, 1000, 1))
+    ref = tally.result()["psnr_maps"]
     del pipe
     masters = {n: p.detach().clone() for n, p in tr.state.params.items()}
     fn = make_validation_fn(tr, val_batch, os.path.join(tmp, "validation"),
@@ -2746,7 +2786,6 @@ def obj_collate(torch, cfg, items, tmp):
     material by `Material.from_mtl`, collated from two cameras: K4 at that
     shape bit-equal to its plain version, one launch in the collate."""
     import numpy as np
-    from PIL import Image
     from unirenderer_tpu_torch.data.obj_io import build_native, load_obj
     from unirenderer_tpu_torch.data.objaverse import (
         collate_render, pad_mesh, stack_scene,
@@ -2755,20 +2794,7 @@ def obj_collate(torch, cfg, items, tmp):
     from unirenderer_tpu_torch.render.material import Material
     d = cfg.data
     mesh = unpadded(items[0]["mesh"])
-    obj = os.path.join(tmp, "scene.obj")
-    with open(obj, "w") as f:
-        f.write("mtllib scene.mtl\n")
-        for key, tag in (("v_pos", "v"), ("v_tex", "vt"), ("v_nrm", "vn")):
-            f.writelines(f"{tag} " + " ".join(f"{x:.9g}" for x in row)
-                         + "\n" for row in mesh[key].tolist())
-        f.write("usemtl scene\n")
-        f.writelines("f " + " ".join(f"{i}/{i}/{i}" for i in row) + "\n"
-                     for row in (mesh["t_idx"] + 1).tolist())
-    kd = np.clip(items[0]["mesh"]["kd_tex"], 0, 1)
-    Image.fromarray((kd * 255).round().astype(np.uint8)).save(
-        os.path.join(tmp, "kd.png"))
-    with open(os.path.join(tmp, "scene.mtl"), "w") as f:
-        f.write("newmtl scene\nKd 0.8 0.8 0.8\nmap_Kd kd.png\n")
+    obj = write_obj(tmp, "scene", mesh, items[0]["mesh"]["kd_tex"])
     t = time.perf_counter()
     build_native()
     build_s = time.perf_counter() - t
@@ -4201,11 +4227,53 @@ def f32_vae_recon(torch):
     return rep
 
 
-def f32_clis(torch):
+CLI_TIMEOUT_S = 400
+
+
+def run_clis(cmds, tmp, timeout=CLI_TIMEOUT_S):
+    """Run the commands ({name: argv after the interpreter}) side by side,
+    output to files -> {name: (stdout, seconds)}; a non-zero exit fails.
+    None outlives the call."""
+    procs = {}
+    t = time.perf_counter()
+    try:
+        for name, argv in cmds.items():
+            with open(os.path.join(tmp, f"{name}.out"), "w") as out_f, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as err_f:
+                procs[name] = subprocess.Popen([sys.executable] + argv,
+                                               stdout=out_f, stderr=err_f)
+        out = {}
+        for name, proc in procs.items():
+            proc.wait(timeout=timeout)
+            seconds = time.perf_counter() - t
+            with open(os.path.join(tmp, f"{name}.out")) as f:
+                stdout = f.read()
+            with open(os.path.join(tmp, f"{name}.err")) as f:
+                stderr = f.read()
+            check(proc.returncode == 0, f"{' '.join(cmds[name])}: exit "
+                  f"{proc.returncode}\n{stderr[-2000:]}")
+            out[name] = (stdout, seconds)
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def printed_launches(stdout, tag):
+    return json.loads(next(ln for ln in stdout.splitlines()
+                           if ln.startswith(f"[{tag}] kernel launches ")
+                           ).split("launches ", 1)[1])
+
+
+def f32_clis(torch, keep=None):
     """(f): the train and VAE CLIs at small() on the card with no type
     given, 2 steps each on synthetic maps, the two processes side by
     side: f32 (their own report), finite losses, and the f32 kernels
-    launched (the launch counts they print)."""
+    launched (the launch counts they print).  `keep`: where the train
+    CLI's checkpoints are copied (phase 16 exports them)."""
+    import shutil
     import tempfile
     out = {}
     clis = (("train", "unirenderer_tpu_torch.train", "metrics.jsonl",
@@ -4213,45 +4281,23 @@ def f32_clis(torch):
             ("vae", "unirenderer_tpu_torch.train.vae", "vae_metrics.jsonl",
              "vae_loss"))
     with tempfile.TemporaryDirectory(prefix="clis_") as tmp:
-        procs = {}
-        t = time.perf_counter()
-        for name, module, _, _ in clis:
-            cmd = [sys.executable, "-m", module, "--workdir",
-                   os.path.join(tmp, name), "--config", "small",
-                   "--synthetic", "--steps", "2"]
-            # to files: neither process blocks on a full pipe
-            with open(os.path.join(tmp, f"{name}.out"), "w") as out_f, \
-                    open(os.path.join(tmp, f"{name}.err"), "w") as err_f:
-                procs[name] = (cmd, subprocess.Popen(cmd, stdout=out_f,
-                                                     stderr=err_f))
-        try:
-            for name, module, metrics, key in clis:
-                out[name] = cli_result(name, module, metrics, key,
-                                       *procs[name], tmp, t)
-        finally:                          # none outlives the phase
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        runs = run_clis({name: ["-m", module, "--workdir",
+                                os.path.join(tmp, name), "--config",
+                                "small", "--synthetic", "--steps", "2"]
+                         for name, module, _, _ in clis}, tmp)
+        for name, module, metrics, key in clis:
+            out[name] = cli_result(name, module, metrics, key, *runs[name],
+                                   tmp)
+        if keep is not None:
+            shutil.copytree(os.path.join(tmp, "train", "checkpoints"), keep)
     return out
 
 
-def cli_result(name, module, metrics, key, cmd, proc, tmp, t0):
-    """(f)'s checks of one CLI process (waited for here)."""
-    proc.wait(timeout=300)
-    seconds = time.perf_counter() - t0
-    with open(os.path.join(tmp, f"{name}.out")) as f:
-        stdout = f.read()
-    with open(os.path.join(tmp, f"{name}.err")) as f:
-        stderr = f.read()
-    check(proc.returncode == 0, f"{' '.join(cmd[1:])}: exit "
-          f"{proc.returncode}\n{stderr[-2000:]}")
+def cli_result(name, module, metrics, key, stdout, seconds, tmp):
+    """(f)'s checks of one CLI's output."""
     lines = stdout.splitlines()
     dtype = [ln for ln in lines if ln.startswith(f"[{name}] compute")]
-    counts = json.loads(next(
-        ln for ln in lines
-        if ln.startswith(f"[{name}] kernel launches ")
-    ).split("launches ", 1)[1])
+    counts = printed_launches(stdout, name)
     with open(os.path.join(tmp, name, metrics)) as f:
         losses = [json.loads(ln) for ln in f]
     finite = all(math.isfinite(r[key]) for r in losses)
@@ -4274,11 +4320,12 @@ def cli_result(name, module, metrics, key, cmd, proc, tmp, t0):
     return dict(seconds=seconds, losses=losses, launches=counts)
 
 
-def phase_f32(torch, F, record):
+def phase_f32(torch, F, record, keep=None):
     """Phase 15: (a) the f32 kernels against their plain versions and K1's
     f32 plans; (b) small() in f32, card against CPU, and the routes; (c)
     the held-out harness in f32; (d) a train step in f32, card against
-    CPU; (e) the VAE reconstruction eval; (f) the CLIs' default type."""
+    CPU; (e) the VAE reconstruction eval; (f) the CLIs' default type
+    (the train CLI's checkpoints copied to `keep`)."""
     mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
     flags = (mm.allow_tf32, dnn.allow_tf32)
     mm.allow_tf32 = dnn.allow_tf32 = False    # the plain and library calls
@@ -4304,7 +4351,7 @@ def phase_f32(torch, F, record):
                 ("e", "the held-out VAE reconstruction eval in f32",
                  lambda: f32_vae_recon(torch)),
                 ("f", "the train and VAE CLIs at small() with no type given",
-                 lambda: f32_clis(torch))):
+                 lambda: f32_clis(torch, keep))):
             t = time.perf_counter()
             log(f"  ({part}) {what}")
             out[part] = fn()
@@ -4320,6 +4367,370 @@ def phase_f32(torch, F, record):
     launches["splash_attention_f32"] = out["b"]["route_splash_launches"]
     launches["attn_kernel_f32"] = out["b"]["route_unet_flash_launches"]
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the user's data path (preprocessing CLIs, the JAX tool's
+# harness interface, weight export)
+# ---------------------------------------------------------------------------
+
+USER_MESHES = 4                  # meshes the user prepares
+USER_SPHERE_RES = 90             # rings: T 32400, under flagship's t_pad
+USER_HDR = (512, 1024)           # latlong h x w: the 1k size of HDRI sets
+USER_ENVS = 2
+USER_STEPS = 20                  # the flagship harness run's steps
+USER_SMALL_STEPS = 4             # the export round trip's
+LIGHT2MAP_SMALL = ["--res", "64", "--samples", "64"]
+LIGHT2MAP_REL = 1e-5             # card against CPU, per texel, of max|CPU|
+LIGHT2MAP_SEAM_TEXELS = 4        # texels a level allowed past it (seams)
+LIGHT2MAP_SEAM_REL = 2e-2        # and their bound
+CONSTANT_ENV = 0.5
+CONSTANT_REL = 1e-5
+JAX_REPORT_KEYS = ["n_objects", "steps", "psnr_forward_render", "psnr_maps",
+                   "normal_angle", "metal_rough_mae", "checkpoint",
+                   "checkpoint_loaded", "checkpoint_step"]
+
+
+def write_obj(directory, name, mesh, kd01):
+    """`mesh` (v_pos, v_tex, v_nrm, t_idx; one index a corner for all
+    three) as <name>.obj, its material as <name>.mtl and `kd01` (an albedo
+    texture in [0, 1]) as its map_Kd <name>.png.  Returns the OBJ's
+    path."""
+    import numpy as np
+    from PIL import Image
+    obj = os.path.join(directory, f"{name}.obj")
+    with open(obj, "w") as f:
+        f.write(f"mtllib {name}.mtl\n")
+        for key, tag in (("v_pos", "v"), ("v_tex", "vt"), ("v_nrm", "vn")):
+            f.writelines(f"{tag} " + " ".join(f"{x:.9g}" for x in row)
+                         + "\n" for row in np.asarray(mesh[key]).tolist())
+        f.write(f"usemtl {name}\n")
+        f.writelines("f " + " ".join(f"{i}/{i}/{i}" for i in row) + "\n"
+                     for row in (np.asarray(mesh["t_idx"]) + 1).tolist())
+    Image.fromarray((np.clip(kd01, 0, 1) * 255).round().astype(np.uint8)) \
+        .save(os.path.join(directory, f"{name}.png"))
+    with open(os.path.join(directory, f"{name}.mtl"), "w") as f:
+        f.write(f"newmtl {name}\nKd 0.8 0.8 0.8\nmap_Kd {name}.png\n")
+    return obj
+
+
+def user_calls(cfg):
+    """`pipelines.KernelCalls` of one batch of the JAX tool's harness on
+    phase 16's data: USER_MESHES objects, forward with the material image
+    encoded and inverse at ensemble 1."""
+    from unirenderer_tpu_torch.pipelines import KernelCalls
+    return (KernelCalls(cfg, cfg.vae.sample_size)
+            .mask2image_3mod_albedo(USER_MESHES, USER_STEPS, True)
+            .real_image2mask_3mod_albedo(USER_MESHES, USER_STEPS, 1))
+
+
+def user_prepare(torch, cfg, tmp):
+    """(a): USER_MESHES deformed spheres (data/synthetic.py) as OBJ + MTL +
+    PNG and USER_ENVS latlong HDRs, through `data.obj2mesh` and
+    `data.light2map` (the JAX tool's defaults) on the card, side by side;
+    the outputs against in-process loads; light2map card against CPU at
+    --res 64 --samples 64 with a constant HDR beside."""
+    import numpy as np
+    from unirenderer_tpu_torch.data.hdr import write_hdr
+    from unirenderer_tpu_torch.data.obj2mesh import mesh_arrays
+    from unirenderer_tpu_torch.data.synthetic import (
+        make_env_latlong, make_shape, make_texture,
+    )
+    from unirenderer_tpu_torch.render.mesh import (
+        auto_normals, make_sphere, unit_normalize_mesh,
+    )
+    rng = np.random.default_rng(SEED + 16)
+    src_obj, src_hdr, src_small = (os.path.join(tmp, d) for d in (
+        "obj", "hdr", "hdr_small"))
+    for d in (src_obj, src_hdr, src_small):
+        os.makedirs(d)
+    base = make_sphere(USER_SPHERE_RES)
+    t_idx = np.asarray(base.t_pos_idx)
+    objs = []
+    for i in range(USER_MESHES):
+        v = unit_normalize_mesh(make_shape(np.asarray(base.v_pos), rng))
+        mesh = dict(v_pos=v, v_tex=np.asarray(base.v_tex),
+                    v_nrm=auto_normals(v, t_idx), t_idx=t_idx)
+        objs.append(write_obj(src_obj, f"m{i}", mesh, make_texture(
+            cfg.data.texture_res, rng)))
+    for e in range(USER_ENVS):
+        ll = make_env_latlong(rng, *USER_HDR)
+        write_hdr(os.path.join(src_hdr, f"e{e}.hdr"), ll)
+        write_hdr(os.path.join(src_small, f"e{e}.hdr"), ll)
+    write_hdr(os.path.join(src_small, "constant.hdr"),
+              np.full((64, 128, 3), CONSTANT_ENV, np.float32))
+    meshes, envs = os.path.join(tmp, "meshes"), os.path.join(tmp, "envs")
+    # the CPU half of the small comparison runs beside the two CLIs
+    # (host cores only); the card half after them
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unirenderer_tpu_torch.data import light2map
+    small = {dev: os.path.join(tmp, f"small_{dev}") for dev in ("cpu",
+                                                               "cuda")}
+    with ThreadPoolExecutor(1) as ex:
+        cpu_run = ex.submit(light2map.main, ["--src", src_small, "--dst",
+                                             small["cpu"], "--device",
+                                             "cpu"] + LIGHT2MAP_SMALL)
+        runs = run_clis({
+            "obj2mesh": ["-m", "unirenderer_tpu_torch.data.obj2mesh",
+                         "--src", src_obj, "--dst", meshes, "--workers",
+                         "8"],
+            "light2map": ["-m", "unirenderer_tpu_torch.data.light2map",
+                          "--src", src_hdr, "--dst", envs]}, tmp)
+        check(cpu_run.result() == 0, "light2map on the CPU failed")
+    light2map.main(["--src", src_small, "--dst", small["cuda"], "--device",
+                    "cuda"] + LIGHT2MAP_SMALL)
+    out = {}
+    # meshes: every array of every npz equal to an in-process load
+    lines = runs["obj2mesh"][0].splitlines()
+    check(f"ok={USER_MESHES} failed=0" in lines[-1], f"obj2mesh: {lines[-1]}")
+    for obj in objs:
+        want = mesh_arrays(obj)
+        with np.load(os.path.join(meshes, os.path.basename(obj)[:-4]
+                                  + ".npz")) as got:
+            check(sorted(got.files) == sorted(want), f"{obj}: keys")
+            for k in want:
+                check(got[k].dtype == want[k].dtype
+                      and np.array_equal(got[k], want[k]),
+                      f"obj2mesh {obj} {k} differs from load_obj")
+    out["mesh_triangles"] = len(want["t_idx"])
+    out["mesh_vertices"] = len(want["v_pos"])
+    # envs: 6 specular levels 512 .. 16 and a diffuse map, finite
+    levels = [USER_HDR[0] >> i for i in range(6)]
+    for e in range(USER_ENVS):
+        d = os.path.join(envs, f"e{e}")
+        check(sorted(os.listdir(d)) == ["diffuse.npy"] + [
+            f"specular_{i}.npy" for i in range(len(levels))],
+            f"light2map e{e}: {sorted(os.listdir(d))}")
+        for i, r in enumerate(levels):
+            s = np.load(os.path.join(d, f"specular_{i}.npy"))
+            check(s.shape == (6, r, r, 3) and s.dtype == np.float32
+                  and bool(np.isfinite(s).all()), f"e{e} specular_{i}")
+        diff = np.load(os.path.join(d, "diffuse.npy"))
+        check(diff.shape == (6, 16, 16, 3) and bool(np.isfinite(diff).all()),
+              f"e{e} diffuse")
+    stdout = runs["light2map"][0]
+    per_env = [float(ln.rsplit(" in ", 1)[1].split()[0])
+               for ln in stdout.splitlines()
+               if ln.startswith("[light2map] ok ")]
+    peak = float(next(ln for ln in stdout.splitlines()
+                      if "peak device memory" in ln).split()[-2])
+    check(len(per_env) == USER_ENVS, f"light2map: {stdout[-500:]}")
+    out.update(obj2mesh_s=runs["obj2mesh"][1], light2map_s=runs[
+        "light2map"][1], seconds_per_env=per_env, light2map_peak_gib=peak)
+    # the card against the CPU at 64 / 64, and the constant env
+    worst = {}
+    for name in sorted(os.listdir(small["cpu"])):
+        for f in sorted(os.listdir(os.path.join(small["cpu"], name))):
+            want = np.load(os.path.join(small["cpu"], name, f))
+            got = np.load(os.path.join(small["cuda"], name, f))
+            check(got.shape == want.shape, f"{name}/{f}: shapes")
+            err = np.abs(got - want).max(-1) / np.abs(want).max()
+            over = int((err > LIGHT2MAP_REL).sum())
+            worst[f"{name}/{f}"] = (float(err.max()), over)
+            check(over <= LIGHT2MAP_SEAM_TEXELS
+                  and err.max() <= LIGHT2MAP_SEAM_REL,
+                  f"light2map {name}/{f}: card against CPU {err.max():.3g} "
+                  f"({over} texels over {LIGHT2MAP_REL:g})")
+            if name == "constant":
+                dev = float(np.abs(got / got.flat[0] - 1).max())
+                check(dev <= CONSTANT_REL, f"constant env {f}: {dev:.3g}")
+    out["card_vs_cpu_64"] = worst
+    log(f"  (a) obj2mesh --workers 8: {USER_MESHES} meshes (V "
+        f"{out['mesh_vertices']}, T {out['mesh_triangles']}) in "
+        f"{out['obj2mesh_s']:.1f} s (process), each npz array-equal to "
+        f"load_obj; light2map at 512 / 16 / 256: {USER_ENVS} envs from "
+        f"{USER_HDR[1]}x{USER_HDR[0]} HDRs in {out['light2map_s']:.1f} s "
+        f"(process), seconds per env {[round(s, 3) for s in per_env]}, "
+        f"peak device memory {peak:.3f} GiB, 6 specular levels "
+        f"{levels[0]}..{levels[-1]} and a diffuse map, finite")
+    log(f"  (a) light2map card against CPU at 64 / 64: worst "
+        f"{max(v[0] for v in worst.values()):.3g} of max|CPU|, texels over "
+        f"{LIGHT2MAP_REL:g}: {max(v[1] for v in worst.values())} a level "
+        f"at most; a constant {CONSTANT_ENV} HDR gives constant maps "
+        f"(within {CONSTANT_REL:g})")
+    return out, meshes, envs
+
+
+def user_harness(torch, cfg, checked, rast_checked, meshes, envs, tmp):
+    """(b): `eval.quality --config flagship` on (a)'s data, random
+    weights, one batch through both legs: a process (the JAX report's
+    keys, launches against the config, K4 once a collate), then in this
+    process the same batch (its K4 call one phase 5 checked) cold and
+    warm (walls, peak memory, launches; the scores equal to the
+    process's) and profiled (device busy)."""
+    from unirenderer_tpu_torch.eval import quality
+    from unirenderer_tpu_torch.train.__main__ import data_paths
+    report_path = os.path.join(tmp, "flagship_report.json")
+    stdout, seconds = run_clis({"quality": [
+        "-m", "unirenderer_tpu_torch.eval.quality", "--config", "flagship",
+        "--mesh-dir", meshes, "--env-dir", envs, "--n", str(USER_MESHES),
+        "--steps", str(USER_STEPS), "--out", report_path]}, tmp)["quality"]
+    with open(report_path) as f:
+        report = json.load(f)
+    check(list(report) == JAX_REPORT_KEYS, f"report keys {list(report)}")
+    check(report["checkpoint_loaded"] is False
+          and report["checkpoint_step"] is None, "random weights labelled "
+          "as a checkpoint")
+    numbers = ([report["psnr_forward_render"], report["metal_rough_mae"]]
+               + list(report["psnr_maps"].values())
+               + list(report["normal_angle"].values()))
+    check(all(math.isfinite(x) for x in numbers), f"report {report}")
+    want = user_calls(cfg).launches
+    counts = printed_launches(stdout, "eval")
+    check({k: counts[k] for k in want} == want, f"the CLI's launches "
+          f"{counts}, the config's {want}")
+    check(counts["rasterize"] == 1, f"K4 launched {counts['rasterize']} "
+          f"times for one collate")
+    check(counts["groupnorm_silu_f32"] == 0, "flagship scored in f32")
+    walls = [ln for ln in stdout.splitlines() if ln.startswith("[eval] batch")]
+    log(f"  (b) python -m unirenderer_tpu_torch.eval.quality --config "
+        f"flagship --n {USER_MESHES} --steps {USER_STEPS}: {seconds:.1f} s "
+        f"(process, cold), {walls[-1][7:]}; launches {counts}; report "
+        f"forward PSNR {report['psnr_forward_render']:.3f} dB, normal "
+        f"{report['psnr_maps']['normal']:.3f} dB (random weights)")
+    # in this process: the same pipeline, batch and noise
+    t = time.perf_counter()
+    pipe, _ = quality.tool_pipeline("flagship", "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    reset_counters()
+    batches = list(quality._held_out_batches(
+        pipe, *data_paths(meshes, envs), USER_MESHES))
+    torch.cuda.synchronize()
+    collate_s = time.perf_counter() - t
+    launched, seen = read_counters()
+    check(launched["rasterize"] == 1, f"the collate of one batch launched "
+          f"K4 {launched['rasterize']} times")
+    missed = seen["rasterize"] - rast_checked
+    check(not missed, f"the collate's K4 calls phase 5 did not check: "
+          f"{sorted(missed)}")
+    runs = []
+    for _ in range(2):                 # cold in this process, then warm
+        scores, wall, peak, got = counted_run(
+            torch, lambda: quality.tool_scores(pipe, batches, USER_STEPS),
+            want, checked, "the flagship user-data harness")
+        runs.append(dict(wall_s=wall, peak_gib=peak / 2**30,
+                         seconds=scores["seconds"][0]))
+    t = time.perf_counter()
+    busy = device_busy_ms(torch, lambda: quality.tool_scores(
+        pipe, batches, USER_STEPS))
+    profile_s = time.perf_counter() - t
+    # the process and this process: the same weights, batch, noise and
+    # kernels, so the same numbers to the last bit
+    diffs = {k: abs(scores[k] - report[k])
+             for k in ("psnr_forward_render", "metal_rough_mae")}
+    diffs.update({f"psnr_{k}": abs(v - report["psnr_maps"][k])
+                  for k, v in scores["psnr_maps"].items()})
+    diffs.update({f"angle_{k}": abs(v - report["normal_angle"][k])
+                  for k, v in scores["normal_angle"].items()})
+    check(max(diffs.values()) == 0, f"the in-process run's scores differ "
+          f"from the process's report: {diffs}")
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"  (b) in this process: cold {runs[0]['wall_s']:.3f} s (forward "
+        f"{runs[0]['seconds'][0]:.3f}, inverse {runs[0]['seconds'][1]:.3f})"
+        f", warm {runs[1]['wall_s']:.3f} s (forward "
+        f"{runs[1]['seconds'][0]:.3f}, inverse {runs[1]['seconds'][1]:.3f}),"
+        f" device busy {busy:.1f} ms ({100 * busy / 1e3 / runs[1]['wall_s']:.1f}"
+        f" % of the warm wall), peak {runs[1]['peak_gib']:.2f} GiB; every "
+        f"score equal to the process's report; weights made in "
+        f"{build_s:.1f} s, collate {collate_s:.2f} s, profiled run "
+        f"{profile_s:.1f} s")
+    return dict(process_s=seconds, report=report, launches=counts,
+                runs=runs, device_busy_ms=busy, score_diffs=diffs,
+                weights_s=build_s, collate_s=collate_s, profile_s=profile_s)
+
+
+def user_export(torch, tmp, ckpt_dir):
+    """(c): a small() train-CLI checkpoint through `core.export_params`
+    (float32 and float16, two processes), then `eval.quality --config
+    small` with `--ckpt` the directory and the f32 npz (two processes) on
+    4 meshes and 2 envs of data/synthetic.py (seed 99; (a)'s meshes
+    exceed small()'s pad sizes): the same report but for its path; the
+    f16 npz read by both loaders."""
+    import numpy as np
+    from unirenderer_tpu_torch.core.checkpoint import load_params_npz
+    from unirenderer_tpu_torch.data.synthetic import write_dataset
+    from unirenderer_tpu_torch.eval import quality
+    data = os.path.join(tmp, "small_set")
+    write_dataset(data, n_mesh=USER_MESHES, n_env=USER_ENVS, env_res=32,
+                  env_min_res=8, seed=99, device="cuda", log=lambda m: None)
+    meshes, envs = os.path.join(data, "meshes"), os.path.join(data, "envs")
+    if ckpt_dir is None:               # phase 15 did not run: make one
+        work = os.path.join(tmp, "train")
+        run_clis({"train": ["-m", "unirenderer_tpu_torch.train",
+                            "--workdir", work, "--config", "small",
+                            "--synthetic", "--steps", "2"]}, tmp)
+        ckpt_dir = os.path.join(work, "checkpoints")
+    npz = {d: os.path.join(tmp, f"small_{d}.npz")
+           for d in ("float32", "float16")}
+    runs = run_clis({f"export_{d}": [
+        "-m", "unirenderer_tpu_torch.core.export_params", "--ckpt", ckpt_dir,
+        "--out", path, "--dtype", d] for d, path in npz.items()}, tmp)
+    reports = {}
+    cmds = {}
+    for what, ckpt in (("dir", ckpt_dir), ("npz", npz["float32"])):
+        reports[what] = os.path.join(tmp, f"small_{what}.json")
+        cmds[f"quality_{what}"] = [
+            "-m", "unirenderer_tpu_torch.eval.quality", "--config", "small",
+            "--mesh-dir", meshes, "--env-dir", envs, "--n",
+            str(USER_MESHES), "--steps", str(USER_SMALL_STEPS), "--ckpt",
+            ckpt, "--vae-ckpt", VAE_NPZ, "--out", reports[what]]
+    runs.update(run_clis(cmds, tmp))
+    got = {}
+    for what, path in reports.items():
+        with open(path) as f:
+            got[what] = json.load(f)
+    check(got["dir"]["checkpoint_loaded"] and got["dir"]["checkpoint_step"]
+          == got["npz"]["checkpoint_step"] == 2, f"steps {got}")
+    same = ({k: v for k, v in got["dir"].items() if k != "checkpoint"}
+            == {k: v for k, v in got["npz"].items() if k != "checkpoint"})
+    check(same, f"--ckpt DIR and --ckpt NPZ differ: {got}")
+    f32, step32 = load_params_npz(npz["float32"])
+    f16, step16 = load_params_npz(npz["float16"])
+    check(step16 == step32 == 2 and sorted(f16) == sorted(f32),
+          "float16 export: keys or step")
+    for k, v in f32.items():
+        check(np.array_equal(f16[k], v.astype(np.float16).astype(v.dtype)
+                             if v.dtype.kind == "f" else v),
+              f"float16 export: {k} is not the f32 master rounded")
+    pipe, step = quality.tool_pipeline("small", "cuda", torch.float32,
+                                       ckpt=npz["float16"])
+    check(step == 2, f"float16 npz through eval.quality's loader: {step}")
+    del pipe
+    sizes = {d: os.path.getsize(p) / 1e6 for d, p in npz.items()}
+    log(f"  (c) export of the small() train-CLI checkpoint (step 2): f32 "
+        f"{sizes['float32']:.0f} MB, f16 {sizes['float16']:.0f} MB "
+        f"(processes {runs['export_float32'][1]:.1f} s); eval.quality "
+        f"--config small --n {USER_MESHES} --steps {USER_SMALL_STEPS}: "
+        f"--ckpt DIR and --ckpt NPZ reports equal (forward PSNR "
+        f"{got['dir']['psnr_forward_render']:.4f} dB, processes "
+        f"{runs['quality_npz'][1]:.1f} s); the f16 export read by "
+        f"load_params_npz (the f32 masters rounded) and by eval.quality's "
+        f"loader")
+    return dict(sizes_mb=sizes, reports=got, export_s=runs[
+        "export_float32"][1], quality_s=runs["quality_npz"][1])
+
+
+def phase_user_data(torch, cfg, checked, ckpt_dir):
+    """Phase 16: (a) preprocessing, (b) the flagship harness on it, (c)
+    the export round trip at small()."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="user_data_") as tmp:
+        for part, fn in (
+                ("a", lambda: user_prepare(torch, cfg, tmp)),
+                ("b", lambda: user_harness(torch, cfg, checked,
+                                           rast_signatures(cfg),
+                                           out["a"][1], out["a"][2], tmp)),
+                ("c", lambda: user_export(torch, tmp, ckpt_dir))):
+            t = time.perf_counter()
+            out[part] = fn()
+            log(f"  ({part}) done in {time.perf_counter() - t:.1f} s")
+    out["a"] = out["a"][0]
+    return out
 
 
 def kernels_line(results, launches):
@@ -4425,6 +4836,11 @@ def phase2_cases(cfg):
         gn, attn = calls.signatures
         apps_gn |= gn - gn_cases - modes_gn - vae_gn
         apps_attn |= attn - attn_cases - modes_attn
+    # phase 16's harness batch (4 objects, forward and inverse), after
+    # every earlier case
+    user_gn, user_attn = user_calls(cfg).signatures
+    user_gn -= gn_cases | modes_gn | vae_gn | apps_gn
+    user_attn -= attn_cases | modes_attn | apps_attn
     ragged_gn = [((2, 37, 29, 320), 32, 1e-5, True),
                  ((1, 33, 31, 1920), 32, 1e-6, False)]
     ragged_attn = [((2, 1000, 8, 40), (2, 333, 8, 40)),
@@ -4444,8 +4860,12 @@ def phase2_cases(cfg):
         vae_gn=[(c, "bfloat16") for c in sorted(vae_gn)],
         apps_gn=[(c, "bfloat16") for c in sorted(apps_gn)],
         apps_attn=sorted(apps_attn),
-        checked={"groupnorm_silu": gn_cases | modes_gn | vae_gn | apps_gn,
-                 "flash_attention": attn_cases | modes_attn | apps_attn,
+        user_gn=[(c, "bfloat16") for c in sorted(user_gn)],
+        user_attn=sorted(user_attn),
+        checked={"groupnorm_silu": (gn_cases | modes_gn | vae_gn | apps_gn
+                                    | user_gn),
+                 "flash_attention": (attn_cases | modes_attn | apps_attn
+                                     | user_attn),
                  "flash_attention_backward": set(train_attn),
                  "splash_attention": set(routed),
                  "attn_kernel": set(routed)})
@@ -4486,6 +4906,10 @@ def main(argv=None) -> int:
         return 3
 
     record = {}
+    import shutil
+    import tempfile
+    keep_root = tempfile.mkdtemp(prefix="chip_smoke_")   # phases 15 -> 16
+    small_ckpt = os.path.join(keep_root, "small_checkpoints")
     try:
         # ---- 0: device
         kind = torch.cuda.get_device_name(0)
@@ -4544,14 +4968,16 @@ def main(argv=None) -> int:
                 f"{len(cases['modes_attn'])} attention cases of phase 11, "
                 f"{len(cases['vae_gn'])} GroupNorm cases of phase 12, "
                 f"{len(cases['apps_gn'])} GroupNorm and "
-                f"{len(cases['apps_attn'])} attention cases of phase 13")
+                f"{len(cases['apps_attn'])} attention cases of phase 13, "
+                f"{len(cases['user_gn'])} GroupNorm and "
+                f"{len(cases['user_attn'])} attention cases of phase 16")
             timer = Timer(torch)
             results = phase_kernels(
                 torch, F, timer, cases["gn_jobs"], cases["attn_jobs"],
                 cases["route_cases"], cases["bwd_jobs"],
                 cases["later_routes"], cases["later_gn"], cases["modes_gn"],
                 cases["modes_attn"], cases["vae_gn"], cases["apps_gn"],
-                cases["apps_attn"])
+                cases["apps_attn"], cases["user_gn"], cases["user_attn"])
             del timer
             fresh = k2_fresh_draws(torch)
             log(f"  K2 err / tol at (2,4096,8,40) on {len(fresh)} fresh "
@@ -4685,14 +5111,26 @@ def main(argv=None) -> int:
                 "against CPU, the held-out harness, a train step, the VAE "
                 "eval, the CLIs")
             t = time.perf_counter()
-            record["f32"], f32_launches = phase_f32(torch, F, record)
+            record["f32"], f32_launches = phase_f32(torch, F, record,
+                                                    small_ckpt)
             results += record["f32"]["a"]["cases"]
             launches.update(f32_launches)
             log(f"phase 15 done in {time.perf_counter() - t:.1f} s")
+        # ---- 16: the user's data path
+        if 16 in phases:
+            log("phase 16 the user's data path: obj2mesh and light2map on "
+                "the card, eval.quality with the JAX tool's flags at "
+                "flagship, the export round trip at small()")
+            t = time.perf_counter()
+            record["user_data"] = phase_user_data(
+                torch, cfg, checked,
+                small_ckpt if os.path.isdir(small_ckpt) else None)
+            log(f"phase 16 done in {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     finally:
+        shutil.rmtree(keep_root, ignore_errors=True)
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -33,7 +33,7 @@ from unirenderer_tpu_torch.data import objaverse as tdata
 from unirenderer_tpu_torch.data import synthetic
 from unirenderer_tpu_torch.eval import metrics as tmetrics
 from unirenderer_tpu_torch.eval.quality import (
-    forward_psnr, held_out_paths, inverse_scores,
+    _held_out_batches, held_out_paths, tool_scores,
 )
 from unirenderer_tpu_torch.ops.rasterize import rasterize
 from unirenderer_tpu_torch.pipelines import UniRendererPipeline
@@ -233,8 +233,8 @@ def test_forward_psnr_runs_the_held_out_leg(tmp_path):
     pipe = UniRendererPipeline.create(
         tcfg.tiny(), torch.Generator().manual_seed(0), device="cpu",
         dtype=torch.float32)
-    runs = [forward_psnr(pipe, meshes, envs, n=5, num_steps=2,
-                         noise_seed=s) for s in (10, 10, 11)]
+    runs = [tool_scores(pipe, _held_out_batches(pipe, meshes, envs, 5), 2,
+                        inverse=False, seed_base=s) for s in (10, 10, 11)]
     assert len(runs[0]["per_batch"]) == 2
     assert np.isfinite(runs[0]["psnr_forward_render"])
     assert runs[0]["psnr_forward_render"] == runs[1]["psnr_forward_render"]
@@ -252,8 +252,10 @@ def test_inverse_scores_run_the_held_out_leg(tmp_path):
     pipe = UniRendererPipeline.create(
         tcfg.tiny(), torch.Generator().manual_seed(0), device="cpu",
         dtype=torch.float32)
-    runs = [inverse_scores(pipe, meshes, envs, n=5, num_steps=1,
-                           noise_seed=s, ensemble=2) for s in (10, 10, 11)]
+    runs = [tool_scores(pipe, _held_out_batches(pipe, meshes, envs, 5), 1,
+                        2, seed_base=s) for s in (10, 10, 11)]
+    for run in runs:
+        run.pop("seconds")
     r = runs[0]
     assert set(r["psnr_maps"]) == {"normal", "albedo", "spec_light",
                                    "diff_light"}

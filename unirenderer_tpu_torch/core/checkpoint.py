@@ -50,14 +50,22 @@ def load_params_npz(path: str) -> Tuple[Dict[str, np.ndarray], Optional[int]]:
 
 
 def save_params_npz(path: str, flat: Dict[str, np.ndarray],
-                    step: Optional[int] = None) -> None:
-    """Write {flax path: array} as one npz in the JAX format: every leaf
-    in its own type (the JAX writer's default stores floats as f16; f32
-    masters kept as f32 restore bit-equal), and the step under
-    `__step__` (-1 for none), so the JAX package's `load_params_npz`
-    reads it."""
+                    step: Optional[int] = None,
+                    dtype: Optional[str] = None) -> None:
+    """Write {flax path: array} as one npz in the JAX format, the step
+    under `__step__` (-1 for none), so the JAX package's `load_params_npz`
+    reads it.  `dtype` None: every leaf in its own type, uncompressed (a
+    checkpoint's f32 masters restore bit-equal); else as the JAX writer
+    exports (its `save_params_npz(..., dtype)`): compressed, float leaves
+    cast to `dtype` ("float16" or "float32"), the others as they are."""
     out = {k: np.asarray(a) for k, a in flat.items()}
-    np.savez(path, __step__=np.int64(-1 if step is None else step), **out)
+    step_arr = np.int64(-1 if step is None else step)
+    if dtype is None:
+        np.savez(path, __step__=step_arr, **out)
+        return
+    out = {k: a.astype(dtype) if a.dtype.kind == "f" else a
+           for k, a in out.items()}
+    np.savez_compressed(path, __step__=step_arr, **out)
 
 
 def map_tensors(fn: Callable[[torch.Tensor], Any], obj):

@@ -69,8 +69,10 @@ def load_flax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
 
 
 def _flax_leaf(mod: nn.Module, name: str, t: torch.Tensor):
-    """(flax leaf name, array in the flax layout) of one parameter."""
-    a = t.detach().float().cpu().numpy()
+    """(flax leaf name, array in the flax layout) of one parameter: a
+    copy, never a view of the tensor's memory (an f32 tensor on the CPU
+    would otherwise share it, and an update in place would change it)."""
+    a = t.detach().to("cpu", torch.float32, copy=True).numpy()
     if name != "weight":
         return name, a
     if isinstance(mod, nn.Embedding):

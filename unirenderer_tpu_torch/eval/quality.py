@@ -23,6 +23,28 @@ the report says `lpips_calibrated` / `fid_calibrated` false.  The harness
 computes in f32 by default on either device, as tools/eval_quality.py
 scores small(): on the card the f32 kernels, with cuDNN and cuBLAS
 without TF32; `--dtype bfloat16` runs the bf16 kernels.
+
+With any of tools/eval_quality.py's own flags the CLI is that tool: the
+user's preprocessed data (or sphere scenes) and checkpoints, both legs,
+one JSON report with its keys:
+
+    python -m unirenderer_tpu_torch.eval.quality --mesh-dir data/meshes \
+        --env-dir data/envs [--out quality_report.json] [--ckpt DIR|NPZ]
+        [--vae-ckpt DIR|NPZ] [--n 16] [--steps 20] [--ensemble 1]
+        [--config tiny|small|medium|flagship] [--tiny] [--synthetic]
+        [--dump-images DIR] [--dump-max-batches 2] [--lpips] [--fid]
+
+`--mesh-dir` / `--env-dir` are what `data.obj2mesh` / `data.light2map`
+write: n items of `ObjaverseDataTest` (seed 1234) in batches of 4;
+`--synthetic` sphere scenes in batches of 2 instead.  Batch i draws both
+legs' noise from generators seeded 1000 + i.  `--ckpt` is a checkpoint
+directory (`python -m unirenderer_tpu_torch.train`'s `checkpoints`) or an
+npz (`core.export_params`); one that holds no checkpoint aborts, and no
+`--ckpt` scores seeded random weights, labelled a harness check.  The
+compute type is bf16 at flagship and f32 otherwise (`--dtype` overrides).
+The text encoder is the JAX harness's draw at small()
+(`artifacts/r05/text_small.npz`) and the port's own seeded draw at the
+other configs.
 """
 
 from __future__ import annotations
@@ -33,7 +55,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,40 +105,28 @@ def _numpy(x) -> np.ndarray:
     return x.float().cpu().numpy()
 
 
-def forward_psnr(pipe, mesh_paths: List[str], env_dirs: List[str],
-                 n: int = 32, num_steps: int = 20, noise_seed: int = 1000,
-                 log=None, keep_images: bool = False) -> Dict:
-    """Mean over batches of PSNR((fwd + 1) / 2, (gt + 1) / 2) of `n`
-    held-out items (ObjaverseDataTest with seed 1234, batches of 4 at the
-    VAE's resolution), each forward-rendered from its rendered maps with
-    `material_image_encode=True`.  Batch i draws its noise from a
-    generator seeded `noise_seed + i` on the pipeline's device; the
-    forward image is scored unclipped.  `keep_images`: the result's
-    "images" holds per batch (gt, clip(fwd)) in [0, 1], numpy, as
-    `perceptual_scores` takes them."""
-    scores, images = [], []
-    for bi, batch in enumerate(_held_out_batches(pipe, mesh_paths,
-                                                 env_dirs, n)):
-        gen = torch.Generator(device=pipe.device).manual_seed(
-            noise_seed + bi)
-        fwd = pipe.mask2image_3mod_albedo(
-            normal=batch["normal"], albedo=batch["albedo"],
-            spec_light=batch["spec_light"], diff_light=batch["diff_light"],
-            env=batch["env"], mask=batch["mask"],
-            metallic=batch["metallic"], roughness=batch["roughness"],
-            generator=gen, num_steps=num_steps, material_image_encode=True)
-        gt01 = (_numpy(batch["image"]) + 1) / 2
-        scores.append(psnr((_numpy(fwd) + 1) / 2, gt01))
-        if keep_images:
-            images.append((gt01, (np.clip(_numpy(fwd), -1, 1) + 1) / 2))
-        if log is not None:
-            log(f"batch {bi}: psnr_fwd={scores[-1]:.2f}")
-    out = dict(psnr_forward_render=float(np.mean(scores)),
-               per_batch=scores, n_objects=n, steps=num_steps,
-               noise_seed=noise_seed)
-    if keep_images:
-        out["images"] = images
-    return out
+def _generator(pipe, seed: int) -> torch.Generator:
+    return torch.Generator(device=pipe.device).manual_seed(seed)
+
+
+def forward_batch(pipe, batch, num_steps: int, seed: int):
+    """One batch's forward render from its rendered maps, with
+    `material_image_encode=True`, noise from a generator seeded `seed`."""
+    return pipe.mask2image_3mod_albedo(
+        normal=batch["normal"], albedo=batch["albedo"],
+        spec_light=batch["spec_light"], diff_light=batch["diff_light"],
+        env=batch["env"], mask=batch["mask"], metallic=batch["metallic"],
+        roughness=batch["roughness"], generator=_generator(pipe, seed),
+        num_steps=num_steps, material_image_encode=True)
+
+
+def inverse_batch(pipe, batch, num_steps: int, seed: int, ensemble: int):
+    """One batch's inverse render of its rendered image and mask
+    (`ensemble` members), noise from a generator seeded `seed`."""
+    return pipe.real_image2mask_3mod_albedo(
+        image=batch["image"], mask=batch["mask"],
+        generator=_generator(pipe, seed), num_steps=num_steps,
+        ensemble=ensemble)
 
 
 def perceptual_scores(images, device="cuda", lpips: bool = True,
@@ -153,43 +163,35 @@ def perceptual_scores(images, device="cuda", lpips: bool = True,
     return out
 
 
-def inverse_scores(pipe, mesh_paths: List[str], env_dirs: List[str],
-                   n: int = 32, num_steps: int = 20, noise_seed: int = 1000,
-                   ensemble: int = 1, log=None) -> Dict:
-    """The inverse leg of `tools/eval_quality.py` over the same `n` items:
-    each rendered image and its mask through `real_image2mask_3mod_albedo`
-    (`ensemble` members, batch i's noise from a generator seeded
-    `noise_seed + i`); per-map PSNR of normal, albedo, spec_light and
-    diff_light (mean over batches), the normal angle inside the mask over
-    all pixels (`NormalMetric`), and the mean over batches of the masked
-    metallic/roughness MAE."""
-    maps = {k: [] for k in INVERSE_MAPS}
-    normal = NormalMetric()
-    mr_mae = []
-    for bi, batch in enumerate(_held_out_batches(pipe, mesh_paths,
-                                                 env_dirs, n)):
-        gen = torch.Generator(device=pipe.device).manual_seed(
-            noise_seed + bi)
-        inv = pipe.real_image2mask_3mod_albedo(
-            image=batch["image"], mask=batch["mask"], generator=gen,
-            num_steps=num_steps, ensemble=ensemble)
+class InverseTally:
+    """The inverse leg's scores over batches: per-map PSNR of normal,
+    albedo, spec_light and diff_light (mean over batches), the normal
+    angle inside the mask over all pixels (`NormalMetric`), and the mean
+    over batches of the masked metallic/roughness MAE."""
+
+    def __init__(self):
+        self.maps = {k: [] for k in INVERSE_MAPS}
+        self.normal = NormalMetric()
+        self.mr_mae = []
+
+    def add(self, batch, inv) -> None:
         for k in INVERSE_MAPS:
-            maps[k].append(psnr((_numpy(inv[k]) + 1) / 2,
-                                (_numpy(batch[k]) + 1) / 2))
+            self.maps[k].append(psnr((_numpy(inv[k]) + 1) / 2,
+                                     (_numpy(batch[k]) + 1) / 2))
         mask01 = (_numpy(batch["mask"])[..., 0] + 1) / 2 > 0.5
-        normal.update(_numpy(inv["normal"]), _numpy(batch["normal"]), mask01)
+        self.normal.update(_numpy(inv["normal"]), _numpy(batch["normal"]),
+                           mask01)
         m_pred = masked_mean(_numpy(inv["metallic"]), mask01)
         r_pred = masked_mean(_numpy(inv["roughness"]), mask01)
-        mr_mae.append(float(
+        self.mr_mae.append(float(
             np.abs(m_pred - _numpy(batch["metallic"])).mean()
             + np.abs(r_pred - _numpy(batch["roughness"])).mean()) / 2)
-        if log is not None:
-            log(f"batch {bi}: inverse psnr normal={maps['normal'][-1]:.2f} "
-                f"albedo={maps['albedo'][-1]:.2f} mr_mae={mr_mae[-1]:.3f}")
-    return dict(psnr_maps={k: float(np.mean(v)) for k, v in maps.items()},
-                normal_angle=normal.summary(),
-                metal_rough_mae=float(np.mean(mr_mae)), n_objects=n,
-                steps=num_steps, ensemble=ensemble, noise_seed=noise_seed)
+
+    def result(self) -> Dict:
+        return dict(psnr_maps={k: float(np.mean(v))
+                               for k, v in self.maps.items()},
+                    normal_angle=self.normal.summary(),
+                    metal_rough_mae=float(np.mean(self.mr_mae)))
 
 
 def small_trained_pipeline(device="cuda", dtype=torch.bfloat16,
@@ -216,9 +218,10 @@ def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
                     inverse: bool = False, ensemble: int = 1,
                     log=None, keep_images: bool = False) -> Dict:
     """Write the held-out set to a temporary directory (env prefilter on the
-    pipeline's device), then `forward_psnr` once per noise seed, and with
-    `inverse` `inverse_scores` once per noise seed.  `keep_images`: each
-    forward run keeps its images (`forward_psnr`)."""
+    pipeline's device), then `tool_scores` of its `n` items once per noise
+    seed (batch i's noise seeded `seed + i`), the inverse leg with
+    `inverse`.  "runs" holds each seed's `tool_scores`; the top level the
+    means over seeds."""
     from unirenderer_tpu_torch.data.synthetic import write_dataset
     with tempfile.TemporaryDirectory(prefix="held_out_") as root:
         t = time.perf_counter()
@@ -226,51 +229,290 @@ def held_out_scores(pipe, n: int = 32, num_steps: int = 20,
                       log=log or (lambda msg: None), **HELD_OUT)
         gen_s = time.perf_counter() - t
         meshes, envs = held_out_paths(root)
-        runs, inv_runs = [], []
-        for seed in noise_seeds:
-            t = time.perf_counter()
-            r = forward_psnr(pipe, meshes, envs, n=n, num_steps=num_steps,
-                             noise_seed=seed, log=log,
-                             keep_images=keep_images)
-            r["seconds"] = time.perf_counter() - t
-            runs.append(r)
-            if inverse:
-                t = time.perf_counter()
-                r = inverse_scores(pipe, meshes, envs, n=n,
-                                   num_steps=num_steps, noise_seed=seed,
-                                   ensemble=ensemble, log=log)
-                r["seconds"] = time.perf_counter() - t
-                inv_runs.append(r)
+        runs = [dict(tool_scores(
+            pipe, _held_out_batches(pipe, meshes, envs, n), num_steps,
+            ensemble, inverse=inverse, seed_base=seed,
+            keep_images=keep_images, log=log), n_objects=n,
+            steps=num_steps, noise_seed=seed) for seed in noise_seeds]
     vals = [r["psnr_forward_render"] for r in runs]
     out = dict(psnr_forward_render=float(np.mean(vals)), per_seed=vals,
                runs=runs, generate_seconds=gen_s, held_out=HELD_OUT)
     if inverse:
         out["inverse"] = dict(
-            psnr_maps={k: float(np.mean([r["psnr_maps"][k]
-                                         for r in inv_runs]))
+            psnr_maps={k: float(np.mean([r["psnr_maps"][k] for r in runs]))
                        for k in INVERSE_MAPS},
             normal_angle_mean=float(np.mean(
-                [r["normal_angle"]["mean"] for r in inv_runs])),
+                [r["normal_angle"]["mean"] for r in runs])),
             metal_rough_mae=float(np.mean(
-                [r["metal_rough_mae"] for r in inv_runs])),
-            ensemble=ensemble, runs=inv_runs)
+                [r["metal_rough_mae"] for r in runs])),
+            ensemble=ensemble)
     return out
 
 
-def main(argv=None):
+# ---------------------------------------------------------------------------
+# tools/eval_quality.py's interface: the user's data and checkpoints
+# ---------------------------------------------------------------------------
+
+TOOL_FLAGS = ("mesh_dir", "env_dir", "synthetic", "ckpt", "vae_ckpt",
+              "config", "tiny", "out", "dump_images", "dump_max_batches")
+TOOL_N = 16               # the JAX tool's defaults
+TOOL_NOISE_SEED = 1000
+TOOL_DUMP_MAX = 2
+SYNTHETIC_BATCH = 2
+GRID_COLUMNS = ("image", "normal", "albedo", "spec_light", "diff_light")
+
+
+def synthetic_batches(cfg, n: int, device="cuda") -> List[Dict]:
+    """`n` sphere scenes (a 12-ring UV sphere, one constant albedo, a
+    constant white env; metallic / roughness from the material grid and
+    cameras drawn by `random.Random(0)`, as tools/eval_quality.py's
+    `_synthetic_batches`) collated in batches of 2 at the VAE's
+    resolution: no dataset needed."""
+    import random
+
+    from unirenderer_tpu_torch.data.objaverse import material_grid
+    from unirenderer_tpu_torch.render.mesh import make_sphere
+    sphere = make_sphere(12)
+    kd = np.asarray([0.6, 0.5, 0.4], np.float32)
+    mesh = {"v_pos": np.asarray(sphere.v_pos),
+            "t_idx": np.asarray(sphere.t_pos_idx),
+            "v_nrm": np.asarray(sphere.v_nrm),
+            "v_tex": np.asarray(sphere.v_tex),
+            "v_tng": np.asarray(sphere.v_tng), "kd": kd,
+            "kd_tex": np.broadcast_to(kd, (cfg.data.texture_res,
+                                           cfg.data.texture_res, 3)).copy()}
+    env = {"specular_0": np.ones((6, 8, 8, 3), np.float32),
+           "specular_1": np.ones((6, 4, 4, 3), np.float32),
+           "diffuse": np.ones((6, 4, 4, 3), np.float32)}
+    rng = random.Random(0)
+    grid = material_grid(cfg.data.material_grid)
+    items = []
+    for _ in range(n):
+        m, r = rng.choice(grid)
+        items.append(dict(mesh=mesh, env=env, metallic=m, roughness=r,
+                          azimuth=rng.uniform(0, 360),
+                          elevation=rng.uniform(60, 120),
+                          distance=cfg.data.camera_distance))
+    return [collate_render(items[i:i + SYNTHETIC_BATCH],
+                           resolution=cfg.vae.sample_size, device=device)
+            for i in range(0, n, SYNTHETIC_BATCH)]
+
+
+def checkpoint_params(path: str, flag: str):
+    """({flax path: array}, step) of a params npz or of the newest readable
+    checkpoint in a `CheckpointManager` directory.  A path that holds no
+    checkpoint exits: random weights must not be scored under a trained
+    label."""
+    from unirenderer_tpu_torch.core.checkpoint import (
+        CheckpointManager, load_params_npz,
+    )
+    if path.endswith(".npz"):
+        return load_params_npz(path)
+    flat = None
+    if os.path.isdir(path):
+        cm = CheckpointManager(path)
+        flat = cm.restore_params()
+    if flat is None:
+        raise SystemExit(
+            f"[eval] FATAL: {flag} {path} has no restorable checkpoint; "
+            f"refusing to eval random weights under a trained label (pass "
+            f"no {flag} for a harness check)")
+    return flat, cm.restored_step()
+
+
+def tool_pipeline(name: str, device, dtype, ckpt: Optional[str] = None,
+                  vae_ckpt: Optional[str] = None, text=None):
+    """(pipeline, checkpoint step) of config `name`: seeded random weights
+    (generator seeded 0 on `device`), the dual-stream params from `ckpt`
+    and the VAE's from `vae_ckpt` where given (`checkpoint_params`), and
+    the text encoder `text` ({flax path: array}); by default the JAX
+    harness's draw at small() (`TEXT_NPZ`) and the seeded draw at the
+    other configs."""
+    from unirenderer_tpu_torch.core import config
+    from unirenderer_tpu_torch.core.checkpoint import load_params_npz
+    from unirenderer_tpu_torch.pipelines import UniRendererPipeline
+    dual, step = checkpoint_params(ckpt, "--ckpt") if ckpt else (None, None)
+    vae = checkpoint_params(vae_ckpt, "--vae-ckpt")[0] if vae_ckpt else None
+    if text is None and name == "small":
+        text, _ = load_params_npz(TEXT_NPZ)
+    pipe = UniRendererPipeline.create(
+        getattr(config, name)(),
+        torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=dtype)
+    pipe.load_flax(dual=dual, vae=vae, text=text)
+    return pipe, step
+
+
+def dump_grid(out_dir: str, bi: int, batch, fwd, inv) -> str:
+    """One PNG of batch `bi` (tools/eval_quality.py's `_dump_grid`): per
+    object a ground-truth row (image, normal, albedo, spec_light,
+    diff_light) above the prediction row (forward render, then the
+    inverse-rendered maps), 2-pixel white gaps.  Returns its path."""
+    from PIL import Image
+
+    def to_u8(x):  # [-1, 1] (B, H, W, 3) -> uint8
+        return (np.clip((_numpy(x) + 1) / 2, 0, 1) * 255).astype(np.uint8)
+
+    gt_rows = [to_u8(batch[k]) for k in GRID_COLUMNS]
+    pred_rows = [to_u8(fwd)] + [to_u8(inv[k]) for k in GRID_COLUMNS[1:]]
+    b, h, w = gt_rows[0].shape[:3]
+    pad = 2
+    grid = np.full((b * 2 * (h + pad) + pad,
+                    len(GRID_COLUMNS) * (w + pad) + pad, 3), 255, np.uint8)
+    for oi in range(b):
+        for ci in range(len(GRID_COLUMNS)):
+            y0 = pad + 2 * oi * (h + pad)
+            x0 = pad + ci * (w + pad)
+            grid[y0:y0 + h, x0:x0 + w] = gt_rows[ci][oi]
+            grid[y0 + h + pad:y0 + 2 * h + pad, x0:x0 + w] = \
+                pred_rows[ci][oi]
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"eval_grid_b{bi}.png")
+    Image.fromarray(grid).save(path)
+    return path
+
+
+def tool_scores(pipe, batches: Iterable[Dict], num_steps: int = 20,
+                ensemble: int = 1, inverse: bool = True,
+                seed_base: int = TOOL_NOISE_SEED,
+                dump_images: Optional[str] = None,
+                dump_max_batches: int = TOOL_DUMP_MAX,
+                keep_images: bool = False, log=None) -> Dict:
+    """tools/eval_quality.py's loop: each batch forward-rendered from its
+    maps (`material_image_encode`) and, with `inverse`, its image
+    inverse-rendered, both legs' noise from generators seeded `seed_base`
+    + batch index; the forward PSNR (unclipped) per batch and its mean,
+    and `InverseTally`'s scores.  "seconds" holds each batch's (forward,
+    inverse or None) wall, each ending in a copy to the host; with
+    `keep_images`, "images" per batch (gt, clip(fwd)) in [0, 1]
+    (`perceptual_scores`' input); with `dump_images`, the first
+    `dump_max_batches` batches' grids (`dump_grid`, needs `inverse`)."""
+    psnr_fwd, images, seconds = [], [], []
+    tally = InverseTally()
+    for bi, batch in enumerate(batches):
+        seed = seed_base + bi
+        t = time.perf_counter()
+        fwd = forward_batch(pipe, batch, num_steps, seed)
+        gt01 = (_numpy(batch["image"]) + 1) / 2
+        psnr_fwd.append(psnr((_numpy(fwd) + 1) / 2, gt01))
+        t_fwd = time.perf_counter() - t
+        if keep_images:
+            images.append((gt01, (np.clip(_numpy(fwd), -1, 1) + 1) / 2))
+        msg = f"batch {bi}: psnr_fwd={psnr_fwd[-1]:.2f}"
+        if not inverse:
+            seconds.append((t_fwd, None))
+            if log is not None:
+                log(f"{msg} (forward {t_fwd:.3f} s)")
+            continue
+        t = time.perf_counter()
+        inv = inverse_batch(pipe, batch, num_steps, seed, ensemble)
+        tally.add(batch, inv)
+        seconds.append((t_fwd, time.perf_counter() - t))
+        if dump_images and bi < dump_max_batches:
+            path = dump_grid(dump_images, bi, batch, fwd, inv)
+            if log is not None:
+                log(f"wrote {path} (rows: GT over prediction; cols: "
+                    f"{', '.join(GRID_COLUMNS)})")
+        if log is not None:
+            log(f"{msg} inverse psnr normal={tally.maps['normal'][-1]:.2f} "
+                f"albedo={tally.maps['albedo'][-1]:.2f} "
+                f"mr_mae={tally.mr_mae[-1]:.3f} (forward {t_fwd:.3f} s, "
+                f"inverse {seconds[-1][1]:.3f} s)")
+    out = dict(psnr_forward_render=float(np.mean(psnr_fwd)),
+               per_batch=psnr_fwd, seconds=seconds)
+    if inverse:
+        out.update(tally.result(), ensemble=ensemble)
+    if keep_images:
+        out["images"] = images
+    return out
+
+
+def tool_main(args, text=None) -> Dict:
+    """tools/eval_quality.py on the port: the report it writes to
+    `args.out` (and returns)."""
+    from unirenderer_tpu_torch.utils.runtime import (
+        disable_tf32, kernel_launches, setup_runtime,
+    )
+    if not args.synthetic and not (args.mesh_dir and args.env_dir):
+        raise SystemExit("[eval] need --mesh-dir and --env-dir "
+                         "(preprocessed meshes + envs), or --synthetic")
+    device = setup_runtime(args.device)
+    name = "tiny" if args.tiny else (args.config or "flagship")
+    dtype = args.dtype or ("bfloat16" if name == "flagship" else "float32")
+    if dtype == "float32":
+        disable_tf32()
+    n = TOOL_N if args.n is None else args.n
+    pipe, step = tool_pipeline(name, device, getattr(torch, dtype),
+                               args.ckpt, args.vae_ckpt, text)
+    print(f"[eval] {name} in {dtype} on {device}; "
+          + (f"checkpoint step {step} from {args.ckpt}" if args.ckpt
+             else "random weights (harness check)"), flush=True)
+    if args.synthetic:
+        batches = synthetic_batches(pipe.cfg, n, device)
+    else:
+        from unirenderer_tpu_torch.train.__main__ import data_paths
+        meshes, envs = data_paths(args.mesh_dir, args.env_dir)
+        if not (meshes and envs):
+            raise SystemExit("[eval] need preprocessed meshes + envs")
+        batches = _held_out_batches(pipe, meshes, envs, n)
+    scores = tool_scores(pipe, batches, args.steps,
+                         1 if args.ensemble is None else args.ensemble,
+                         dump_images=args.dump_images,
+                         dump_max_batches=(TOOL_DUMP_MAX if
+                                           args.dump_max_batches is None
+                                           else args.dump_max_batches),
+                         keep_images=args.lpips or args.fid,
+                         log=lambda msg: print(f"[eval] {msg}", flush=True))
+    report = {
+        "n_objects": n,
+        "steps": args.steps,
+        "psnr_forward_render": scores["psnr_forward_render"],
+        "psnr_maps": scores["psnr_maps"],
+        "normal_angle": scores["normal_angle"],
+        "metal_rough_mae": scores["metal_rough_mae"],
+        "checkpoint": args.ckpt or "random-weights (harness check)",
+        "checkpoint_loaded": bool(args.ckpt),
+        "checkpoint_step": step,
+    }
+    if args.lpips or args.fid:
+        report.update(perceptual_scores(
+            scores["images"], device, lpips=args.lpips, fid=args.fid,
+            lpips_weights=args.lpips_weights,
+            inception_weights=args.inception_weights))
+    out = args.out or "quality_report.json"
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report, indent=2))
+    print(f"[eval] kernel launches {json.dumps(kernel_launches())}",
+          flush=True)
+    return report
+
+
+def main(argv=None, text=None):
+    """With tools/eval_quality.py's flags, returns its report.  `text`:
+    the text encoder's params for that run (as `tool_pipeline` takes
+    them), in place of its default draw."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device",
                     help="default: $UNIRENDER_PLATFORM, else cuda")
     ap.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
                     help="compute type; default float32, as "
-                         "tools/eval_quality.py scores small()")
-    ap.add_argument("--n", type=int, default=32)
+                         "tools/eval_quality.py scores small() (with its "
+                         "flags: bfloat16 at flagship)")
+    ap.add_argument("--n", type=int, default=None,
+                    help="objects (default 32; with the JAX tool's flags "
+                         "16)")
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--noise-seeds", default="1000")
+    ap.add_argument("--noise-seeds", default=None,
+                    help="default 1000 (not with the JAX tool's flags: "
+                         "batch i's noise is seeded 1000 + i)")
     ap.add_argument("--inverse", action="store_true",
-                    help="also score the inverse leg")
+                    help="also score the inverse leg (always with the JAX "
+                         "tool's flags)")
     ap.add_argument("--ensemble", type=int, default=None,
-                    help="inverse ensemble members (small(): 1)")
+                    help="inverse ensemble members (small(): 1; with the "
+                         "JAX tool's flags 1)")
     ap.add_argument("--lpips", action="store_true",
                     help="also LPIPS(forward, rendered), per noise seed")
     ap.add_argument("--fid", action="store_true",
@@ -283,7 +525,34 @@ def main(argv=None):
     ap.add_argument("--inception-weights",
                     help="torchvision inception_v3 state_dict; a random "
                          "backbone otherwise")
+    tool = ap.add_argument_group(
+        "tools/eval_quality.py's flags (any of them: its run, both legs)")
+    tool.add_argument("--mesh-dir", help="meshes from data.obj2mesh")
+    tool.add_argument("--env-dir", help="envs from data.light2map")
+    tool.add_argument("--synthetic", action="store_true",
+                      help="synthetic sphere scenes (no data needed)")
+    tool.add_argument("--ckpt", help="checkpoint directory or params npz")
+    tool.add_argument("--vae-ckpt", help="VAE checkpoint directory "
+                                         "(train.vae's) or params npz")
+    tool.add_argument("--config", choices=("tiny", "small", "medium",
+                                           "flagship"),
+                      help="default flagship")
+    tool.add_argument("--tiny", action="store_true",
+                      help="alias for --config tiny")
+    tool.add_argument("--out", help="the JSON report (default "
+                                    "quality_report.json)")
+    tool.add_argument("--dump-images",
+                      help="directory for one PNG grid per batch: per "
+                           "object a GT row (image, normal, albedo, spec, "
+                           "diff) above the prediction row")
+    tool.add_argument("--dump-max-batches", type=int, default=None,
+                      help=f"default {TOOL_DUMP_MAX}")
     args = ap.parse_args(argv)
+    if any(getattr(args, f) not in (None, False) for f in TOOL_FLAGS):
+        if args.noise_seeds is not None:
+            ap.error("--noise-seeds: with the JAX tool's flags batch i's "
+                     "noise is seeded 1000 + i")
+        return tool_main(args, text)
     from unirenderer_tpu_torch.utils.runtime import (
         disable_tf32, setup_runtime,
     )
@@ -292,9 +561,11 @@ def main(argv=None):
     if args.dtype == "float32":
         disable_tf32()
     pipe = small_trained_pipeline(args.device, getattr(torch, args.dtype))
-    ensemble = args.ensemble or pipe.cfg.sampler.ensemble
-    out = held_out_scores(pipe, args.n, args.steps,
-                          [int(s) for s in args.noise_seeds.split(",")],
+    ensemble = (pipe.cfg.sampler.ensemble if args.ensemble is None
+                else args.ensemble)
+    out = held_out_scores(pipe, 32 if args.n is None else args.n, args.steps,
+                          [int(s) for s in
+                           (args.noise_seeds or "1000").split(",")],
                           inverse=args.inverse, ensemble=ensemble,
                           log=lambda msg: print(msg, flush=True),
                           keep_images=args.lpips or args.fid)

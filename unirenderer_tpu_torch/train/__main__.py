@@ -4,8 +4,11 @@
     python -m unirenderer_tpu_torch.train --workdir runs/smoke --tiny \\
         --synthetic --steps 3 --device cpu
 
-    # preprocessed meshes and envs (tools/obj2mesh.py, tools/light2map.py),
-    # rendered by the collate on the card before each step:
+    # preprocessed meshes and envs (python -m
+    # unirenderer_tpu_torch.data.obj2mesh --src objs --dst data/meshes;
+    # python -m unirenderer_tpu_torch.data.light2map --src hdrs
+    # --dst data/envs), rendered by the collate on the card before each
+    # step:
     python -m unirenderer_tpu_torch.train --workdir runs/exp1 \\
         --mesh-dir data/meshes --env-dir data/envs --steps 1000
 
